@@ -9,10 +9,15 @@ its public entry points at the size users run, and certifies the results.
 Phases (each raises on failure, so the run exits non-zero):
 
 1. device: the card's name and power limit, TF32 off for matmuls and cuDNN;
-2. build: nvcc builds ``csrc/*.cu`` into ``csrc/build/`` (seconds printed);
-3. kernels: each of the four kernels against its plain version on the card,
-   at the main path's level-0 shape (13x2048x2048 f32) and at 2x1373x1374 in
-   f32 and bf16 storage — bit-equal required; median times of both;
+2. build: nvcc builds ``csrc/*.cu`` into ``csrc/build/``, one compiler
+   process per source, all started together (seconds printed);
+3. kernels: each of the eight kernels against its plain version on the
+   card, at the main path's level-0 shape (13x2048x2048 f32) and at
+   2x1373x1374 in f32 and bf16 storage (the stride-2 kernel at the probe's
+   128x512 and at 13x2048x2048, f32) — bit-equal required; median times of
+   both; the general smoother from u = 0 against the zero-start one, the
+   separate-operand smoother against the general one with omega repeated,
+   the half residual against the row pass of the full one;
 4. main path: ``filling_missing_portions_smooth_boundaries`` and
    ``blend_images_poisson`` on bench.py's 13-band 2048^2 system, then
    ``multigrid.solve`` on it to 1e-6 (median of 5 after a warm-up); every
@@ -20,7 +25,19 @@ Phases (each raises on failure, so the run exits non-zero):
    tolerance, a small fill must match a direct sparse solve, and every
    kernel's launch count must have moved;
 5. full tile: one band of a 10980^2 Sentinel-2 tile through ``laplace_fill``
-   to 1e-6, with its time and peak device memory.
+   to 1e-6, with its time and peak device memory;
+6. general iterate: 10 stationary cycles u <- V(b, u) from x0 = img * m on
+   phase 4's system and on phase 5's band, the f64 residual and its
+   contraction after each; from u = 0 the general route must be bit-equal
+   to the zero-start one; one V-cycle at 13x2048^2 timed in two forms, the
+   current route and one where the half-residual kernel feeds the
+   restrict's column pass (bit-equal to it);
+7. benchmark paths: ``benchmarks/x_kernel_v2.py``'s comparison of the
+   separate-operand smoother with the general one (4096^2, 6 sweeps), and
+   ``benchmarks/x_stride_probe.py``'s five idioms with its own checks.
+
+Each path that a kernel's launch count is read from (phases 4, 6 and 7)
+runs with every count set to 0 just before it.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -44,14 +61,22 @@ BANDS = 13
 TILE = 10980
 TOL = 1e-6
 PALLAS = "satellite_approximation_tpu/ops/pallas_kernels.py"
+CSRC = "satellite_approximation_tpu_torch/csrc"
 KERNELS = {
-    # wrapper name -> (CUDA source, TPU kernel it replaces)
-    "jacobi_zero": ("satellite_approximation_tpu_torch/csrc/jacobi.cu", f"{PALLAS}:743"),
-    "jacobi_corr": ("satellite_approximation_tpu_torch/csrc/jacobi.cu", f"{PALLAS}:582"),
-    "residual_entry": ("satellite_approximation_tpu_torch/csrc/residual.cu", f"{PALLAS}:1013"),
-    "residual_pair": ("satellite_approximation_tpu_torch/csrc/residual.cu", f"{PALLAS}:1023"),
+    # wrapper name (launch-count key) -> (CUDA source, TPU kernel it replaces)
+    "jacobi_zero": (f"{CSRC}/jacobi.cu", f"{PALLAS}:743"),
+    "jacobi_corr": (f"{CSRC}/jacobi.cu", f"{PALLAS}:582"),
+    "jacobi": (f"{CSRC}/jacobi.cu", f"{PALLAS}:377"),
+    "residual_entry": (f"{CSRC}/residual.cu", f"{PALLAS}:1013"),
+    "residual_pair": (f"{CSRC}/residual.cu", f"{PALLAS}:1023"),
+    "jacobi_zero_half": (f"{CSRC}/jacobi.cu", f"{PALLAS}:649"),
+    "jacobi_v2": (f"{CSRC}/jacobi_v2.cu", "benchmarks/x_kernel_v2.py:187"),
+    "stride2": (f"{CSRC}/stride.cu", "benchmarks/x_stride_probe.py:29"),
 }
-
+STRIDE2_TIMED = "both"  # the mode whose times stand in the kernels line
+# a stationary cycle may raise the residual only within this factor of the
+# f32 floor (the residual of the f32-rounded solution)
+FLOOR_FACTOR = 4.0
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -242,13 +267,38 @@ def _bitwise(torch, got, want):
     return err
 
 
+def _value_diff(torch, got, want):
+    """(max |d|, cells whose bits differ although the values are equal —
+    zeros of opposite sign) over a pair of outputs or pairs of them."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err, signs = 0.0, 0
+    for g, w in zip(got, want):
+        view = torch.int16 if g.dtype == torch.bfloat16 else torch.int32
+        err = max(err, float((g.float() - w.float()).abs().max()))
+        signs += int(((g == w) & (g.view(view) != w.view(view))).sum())
+    return err, signs
+
+
 def phase_kernels(torch, K, mg, dev):
     """Every kernel bit-equal to its plain version; times at the main shape."""
     from satellite_approximation_tpu_torch.models.cg import neighbor_degree_tensor
 
     pre = mg._smoother_omegas(mg._PRE_SMOOTH)
     post = tuple(reversed(mg._smoother_omegas(mg._POST_SMOOTH)))
+    v2_omegas = (0.8,) * mg._PRE_SMOOTH
     results = {name: {"max_abs_err": 0.0} for name in KERNELS}
+
+    def record(name, tag, shape, dtype, kern, plain, label=None):
+        err = _bitwise(torch, kern(), plain())
+        res = results[name]
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        ms, plain_ms = _median_ms(torch, kern), _median_ms(torch, plain)
+        if tag == "main" and (label is None or label == STRIDE2_TIMED):
+            res["ms"], res["plain_ms"] = ms, plain_ms
+        log(f"[3 kernels] {label or name:16s} {'x'.join(map(str, shape))} {str(dtype)[6:]:8s} "
+            f"bit-equal max|d|={err:.1e} kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+
     cases = [((BANDS, H, W), torch.float32, "main"), ((2, 1373, 1374), torch.float32, "odd"),
              ((2, 1373, 1374), torch.bfloat16, "odd")]
     for (c, h, w), dtype, tag in cases:
@@ -257,7 +307,8 @@ def phase_kernels(torch, K, mg, dev):
             um = torch.from_numpy(make_mask(h, w)).to(dev)
         else:
             um = torch.rand((h, w), generator=g, device=dev) > 0.4
-        invm = K.invm_for_kernel(um, neighbor_degree_tensor(h, w, dev)).to(dtype)
+        deg = neighbor_degree_tensor(h, w, dev)
+        invm = K.invm_for_kernel(um, deg).to(dtype)
         b = torch.rand((c, h, w), generator=g, device=dev).to(dtype)
         u = torch.rand((c, h, w), generator=g, device=dev).to(dtype)
         e_c = torch.randn((c, (h + 1) // 2, (w + 1) // 2), generator=g, device=dev).to(dtype)
@@ -269,26 +320,62 @@ def phase_kernels(torch, K, mg, dev):
                             lambda: K.jacobi_zero_plain(b, invm, pre, True)),
             "jacobi_corr": (lambda: K.jacobi_corr(u, b, invm, e_c, post, True),
                             lambda: K.jacobi_corr_plain(u, b, invm, e_c, post, True)),
+            "jacobi": (lambda: K.jacobi(u, b, invm, pre, True),
+                       lambda: K.jacobi_plain(u, b, invm, pre, True)),
             "residual_entry": (lambda: K.residual_entry(img, invm),
                                lambda: K.residual_entry_plain(img, invm)),
             "residual_pair": (lambda: K.residual_pair(img, x_hi, x_lo, invm),
                               lambda: K.residual_pair_plain(img, x_hi, x_lo, invm)),
+            "jacobi_zero_half": (lambda: K.jacobi_zero(b, invm, pre, "half"),
+                                 lambda: K.jacobi_zero_plain(b, invm, pre, "half")),
+            "jacobi_v2": (lambda: K.jacobi_v2(u, b, um, deg, len(v2_omegas), v2_omegas[0], True),
+                          lambda: K.jacobi_v2_plain(u, b, um, deg, len(v2_omegas), v2_omegas[0],
+                                                    True)),
         }
-        # the post-smooth without its residual runs on every level below the top
-        err = _bitwise(torch, K.jacobi_corr(u, b, invm, e_c, post, False),
-                       K.jacobi_corr_plain(u, b, invm, e_c, post, False))
-        results["jacobi_corr"]["max_abs_err"] = max(results["jacobi_corr"]["max_abs_err"], err)
-        for name, (kern, plain) in calls.items():
+        # the smoothers without their residual run on every level below the top
+        for name, kern, plain in (
+            ("jacobi_corr", lambda: K.jacobi_corr(u, b, invm, e_c, post, False),
+             lambda: K.jacobi_corr_plain(u, b, invm, e_c, post, False)),
+            ("jacobi", lambda: K.jacobi(u, b, invm, pre, False),
+             lambda: K.jacobi_plain(u, b, invm, pre, False)),
+        ):
             err = _bitwise(torch, kern(), plain())
-            res = results[name]
-            res["max_abs_err"] = max(res["max_abs_err"], err)
-            ms, plain_ms = _median_ms(torch, kern), _median_ms(torch, plain)
-            if tag == "main":
-                res["ms"], res["plain_ms"] = ms, plain_ms
-            log(f"[3 kernels] {name:15s} {c}x{h}x{w} {str(dtype)[6:]:8s} bit-equal "
-                f"max|d|={err:.1e} kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
-        del b, u, e_c, img, x_hi, x_lo, invm, calls
+            results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+        for name, (kern, plain) in calls.items():
+            record(name, tag, (c, h, w), dtype, kern, plain)
+
+        # kernel 3 from u = 0 is kernel 1, up to the sign of zero
+        err, signs = _value_diff(torch, K.jacobi(torch.zeros_like(b), b, invm, pre, True),
+                                 K.jacobi_zero(b, invm, pre, True))
+        if err != 0.0:
+            raise AssertionError(f"jacobi from u = 0 differs from jacobi_zero: max |d| {err}")
+        log(f"[3 kernels] jacobi(u=0) vs jacobi_zero: max|d|={err:.1e}, {signs} zeros of "
+            "opposite sign")
+        # kernel 6's half residual is the row pass of kernel 1's full residual
+        _, r_full = K.jacobi_zero(b, invm, pre, True)
+        _bitwise(torch, K.jacobi_zero(b, invm, pre, "half")[1], K.restrict_rows(r_full))
+        log("[3 kernels] jacobi_zero_half vs row pass of jacobi_zero's residual: bit-equal")
+        # kernel 7 against kernel 3 with omega repeated (benchmarks/x_kernel_v2.py:265-275);
+        # in bf16 kernel 3 reads 1/deg rounded to bf16, kernel 7 computes it in f32
+        err, signs = _value_diff(
+            torch, K.jacobi_v2(u, b, um, deg, len(v2_omegas), v2_omegas[0], True),
+            K.jacobi(u, b, invm, v2_omegas, True),
+        )
+        log(f"[3 kernels] jacobi_v2 vs jacobi, omega {v2_omegas[0]} x{len(v2_omegas)}, "
+            f"{str(dtype)[6:]}: max|d|={err:.3e}, {signs} zeros of opposite sign")
+        if dtype == torch.float32 and err != 0.0:
+            raise AssertionError(f"jacobi_v2 differs from jacobi in f32: max |d| {err}")
+        if tag == "main":
+            for mode in K.STRIDE2_MODES:
+                record("stride2", tag, (c, h, w), dtype, lambda mode=mode: K.stride2(b, mode),
+                       lambda mode=mode: K.stride2_plain(b, mode), label=mode)
+        del b, u, e_c, img, x_hi, x_lo, invm, calls, r_full
         torch.cuda.empty_cache()
+    x = torch.from_numpy(np.random.default_rng(0).random((128, 512), np.float32)).to(dev)
+    for mode in K.STRIDE2_MODES:
+        record("stride2", "probe", (128, 512), torch.float32,
+               lambda mode=mode: K.stride2(x, mode), lambda mode=mode: K.stride2_plain(x, mode),
+               label=mode)
     return results
 
 
@@ -376,11 +463,15 @@ def phase_main_path(torch, K, dev, card):
         f"median {med:.6f} s of {[round(t, 6) for t in times]}, "
         f"{n_masked / med / 1e6:.3f} masked Mpix/s, certified {res.error:.3e}, "
         f"f64 residual {rel_solve:.3e} [{card}]")
+    counts = {k: counts[k] for k in ("jacobi_zero", "jacobi_corr", "residual_entry",
+                                     "residual_pair")}
     missing = [k for k, v in counts.items() if v == 0]
     log(f"[4 main] kernel launches on the main path: {counts}")
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
-    return counts
+    # phase 6 reuses the system; kept on the host, so phase 5's peak memory
+    # counts only the tile
+    return counts, (umask, deg, b, imgs * umask)
 
 
 def phase_full_tile(torch, dev, card):
@@ -407,6 +498,178 @@ def phase_full_tile(torch, dev, card):
             f"certified {res.error:.3e}, peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
             f"[{card}]")
         del res, out
+    return m, img
+
+
+def rhs_residual(torch, u, b, umask, deg):
+    """max over bands of ||(b - A u) * m|| / ||b|| in f64, A the masked
+    5-point operator with the in-image degree ``deg``."""
+    um = umask.to(torch.float64)
+    x = u.to(torch.float64) * um
+    b64 = b.to(torch.float64)
+    r = (b64 - (deg.to(torch.float64) * x - s4(x))) * um
+    rel = torch.linalg.vector_norm(r, dim=(-2, -1)) / torch.linalg.vector_norm(b64, dim=(-2, -1))
+    return float(rel.max())
+
+
+def stationary_cycles(torch, K, mg, pb, b, x0, umask, deg, label, card, cycles=10):
+    """``cycles`` stationary V-cycles u <- V(b, u) from ``x0`` (kernel 3 for
+    the pre-smooth at the top): the f64 residual and its contraction after
+    each. The residual must fall in every cycle until it reaches the f32
+    floor, the residual of the f32-rounded solution of the same system
+    (double-float ``multigrid.solve`` to 1e-10); there it may jitter within
+    FLOOR_FACTOR times the floor, and the last cycle must end there.
+    Returns the launch counts of the cycles."""
+    sol = mg.solve(b.double(), umask, deg=deg, tolerance=1e-10, refinement_steps=4,
+                   device_output=True)
+    floor = rhs_residual(torch, sol.x.float(), b, umask, deg)
+    log(f"[6 general] {label}: f32 floor {floor:.3e} (f64 solution to {sol.error:.2e}, "
+        f"its own residual {rhs_residual(torch, sol.x, b, umask, deg):.3e})")
+    del sol
+    u = x0
+    prev = rhs_residual(torch, u, b, umask, deg)
+    log(f"[6 general] {label}: cycle 0 (x0 = img * m) residual {prev:.6e}")
+    K.reset_launch_counts()
+    for k in range(1, cycles + 1):
+        t0 = time.perf_counter()
+        u = mg._v_cycle(pb, b, u)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        cur = rhs_residual(torch, u, b, umask, deg)
+        log(f"[6 general] {label}: cycle {k} residual {cur:.6e} contraction {cur / prev:.6f} "
+            f"({cur / floor:.3f}x floor) {dt * 1e3:.3f} ms [{card}]")
+        if not bool(torch.isfinite(u).all()):
+            raise AssertionError(f"{label}: cycle {k} left non-finite values")
+        if cur > prev and cur > FLOOR_FACTOR * floor:
+            raise AssertionError(f"{label}: cycle {k} raised the residual {prev:.3e} -> {cur:.3e}")
+        prev = cur
+    counts = dict(K.launch_counts)
+    if prev > FLOOR_FACTOR * floor:
+        raise AssertionError(f"{label}: {cycles} cycles end at {prev:.3e}, above "
+                             f"{FLOOR_FACTOR} x the f32 floor {floor:.3e}")
+    return counts
+
+
+def v_cycle_half_restrict(K, mg, pb, b, lvl=0, emit_top_residual=False):
+    """``mg._v_cycle(pb, b)`` with kernel 6 in place of kernel 1: the
+    pre-smooth emits its residual with the row pairs summed, and only the
+    restrict's column pass remains. Bit-equal to the current route."""
+    um, deg = pb.levels[lvl]
+    if lvl == len(pb.levels) - 1:
+        return mg._coarse_solve(b, um, deg, pb.coarse_inv)
+    pre = mg._smoother_omegas(mg._PRE_SMOOTH)
+    post = tuple(reversed(mg._smoother_omegas(mg._POST_SMOOTH)))
+    invm = pb.invms[lvl]
+    u, rows = K.jacobi_zero(b, invm, pre, emit_residual="half")
+    r_c = mg._restrict_cols(rows) * pb.levels[lvl + 1][0].to(rows.dtype)
+    e_c = v_cycle_half_restrict(K, mg, pb, r_c, lvl + 1)
+    return K.jacobi_corr(u, b, invm, e_c, post, emit_residual=emit_top_residual)
+
+
+def phase_general_iterate(torch, K, dev, card, system, tile):
+    from satellite_approximation_tpu_torch.models import multigrid as mg
+    from satellite_approximation_tpu_torch.models.cg import neighbor_degree_tensor
+
+    umask_np, deg_np, b64, x064 = system
+    umask = torch.from_numpy(umask_np).to(dev)
+    deg = torch.from_numpy(deg_np).to(dev)
+    # phase 4's hierarchy, from the cache
+    pb = mg.prebuild(mg._device_hierarchy(umask_np, deg, dev), torch.float32)
+    b, x0 = (torch.from_numpy(a).to(dev).float() for a in (b64, x064))
+    counts = stationary_cycles(torch, K, mg, pb, b, x0, umask, deg, f"{BANDS}x{H}x{W}", card)
+
+    for emit in (False, True):
+        _bitwise(torch, mg._v_cycle(pb, b, torch.zeros_like(b), emit_top_residual=emit),
+                 mg._v_cycle(pb, b, emit_top_residual=emit))
+    log("[6 general] _v_cycle(pb, b, u=0) bit-equal to _v_cycle(pb, b), with and without "
+        "the top residual")
+
+    # A/B: the current route against the half-residual route, as PCG calls
+    # the V-cycle (top residual emitted); turns A B B A, CUDA events
+    def current():
+        return mg._v_cycle(pb, b, emit_top_residual=True)
+
+    def half():
+        return v_cycle_half_restrict(K, mg, pb, b, emit_top_residual=True)
+
+    _bitwise(torch, half(), current())
+    K.reset_launch_counts()
+    times = {"current": [], "half": []}
+    for turn in range(10):
+        order = ("current", "half") if turn % 2 == 0 else ("half", "current")
+        for name in order:
+            times[name].append(_median_ms(torch, current if name == "current" else half, runs=1))
+    counts["jacobi_zero_half"] = K.launch_counts["jacobi_zero_half"]
+    med = {k: statistics.median(v) for k, v in times.items()}
+    log(f"[6 general] one V-cycle {BANDS}x{H}x{W} f32 (top residual emitted), 10 pairs: "
+        f"current route median {med['current']:.4f} ms {[round(t, 4) for t in times['current']]}, "
+        f"half-restrict route median {med['half']:.4f} ms {[round(t, 4) for t in times['half']]}, "
+        f"bit-equal [{card}]")
+
+    m, img = tile
+    n = m.shape[-1]
+    tdeg = neighbor_degree_tensor(n, n, dev)
+    tb = s4(torch.where(m, 0.0, img)) * m
+    tx0 = img * m
+    tpb = mg.prebuild(mg._device_hierarchy(m, tdeg, dev), torch.float32)
+    tile_counts = stationary_cycles(torch, K, mg, tpb, tb, tx0, m, tdeg, f"1x{n}x{n}", card)
+    counts["jacobi"] += tile_counts["jacobi"]
+    log(f"[6 general] kernel launches of the stationary cycles and the A/B: "
+        f"jacobi {counts['jacobi']}, jacobi_zero_half {counts['jacobi_zero_half']}")
+    return {k: counts[k] for k in ("jacobi", "jacobi_zero_half")}
+
+
+def phase_benchmark_paths(torch, K, dev, card):
+    """The two benchmark scripts whose Pallas kernels the port carries."""
+    from satellite_approximation_tpu_torch import ops
+
+    # benchmarks/x_kernel_v2.py main(): v1 (kernel 3) against v2 (kernel 7)
+    n, sweeps = 4096, 6
+    rng = np.random.default_rng(0)
+    u = torch.from_numpy(rng.random((1, n, n), dtype=np.float32)).to(dev)
+    b = torch.from_numpy(rng.random((1, n, n), dtype=np.float32)).to(dev)
+    m = torch.from_numpy(rng.random((n, n)) > 0.3).to(dev)
+    deg = torch.full((n, n), 4.0, device=dev)
+    K.reset_launch_counts()
+    for emit in (False, True):
+        def v1(emit=emit):
+            return ops.fused_jacobi(u, b, m, deg, sweeps=sweeps, emit_residual=emit)
+
+        def v2(emit=emit):
+            return K.jacobi_v2(u, b, m, deg, sweeps=sweeps, emit_residual=emit)
+
+        diff, signs = _value_diff(torch, v2(), v1())
+        log(f"[7 bench] x_kernel_v2 1x{n}x{n} sweeps={sweeps} emit_residual={emit}: "
+            f"max |v1 - v2| = {diff}, {signs} zeros of opposite sign")
+        if diff != 0.0:
+            raise AssertionError("v2 mismatch")
+        log(f"[7 bench]   v1 {_median_ms(torch, v1):.4f} ms  v2 {_median_ms(torch, v2):.4f} ms "
+            f"[{card}]")
+    counts = {"jacobi_v2": K.launch_counts["jacobi_v2"]}
+    del u, b, m, deg
+
+    # benchmarks/x_stride_probe.py main(): the five idioms and their checks
+    x = np.random.default_rng(0).random((128, 512), np.float32)
+    xt = torch.from_numpy(x).to(dev)
+    probes = [
+        ("A sublane x[0::2, :]", "rows", lambda y: np.array_equal(y, x[0::2, :])),
+        ("B lane x[:, 0::2]", "cols", lambda y: np.array_equal(y, x[:, 0::2])),
+        ("C reshape-pair lanes", "cols",
+         lambda y: np.array_equal(y, x.reshape(128, 256, 2)[:, :, 0])),
+        ("D both x[0::2, 0::2]", "both", lambda y: np.array_equal(y, x[0::2, 0::2])),
+        ("E stack-interleave lanes", "interleave",
+         lambda y: np.array_equal(y[:, 0::2], x[:, :256])
+         and np.array_equal(y[:, 1::2], x[:, :256] + 1.0)),
+    ]
+    K.reset_launch_counts()
+    for label, mode, check in probes:
+        ok = check(K.stride2(xt, mode).cpu().numpy())
+        log(f"[7 bench] x_stride_probe {label}: launched, correct={ok}")
+        if not ok:
+            raise AssertionError(f"stride probe {label} is wrong")
+    counts["stride2"] = K.launch_counts["stride2"]
+    log(f"[7 bench] kernel launches of the benchmark paths: {counts}")
+    return counts
 
 
 def main() -> int:
@@ -427,8 +690,14 @@ def main() -> int:
     card = phase_device(torch)
     phase_build(K)
     results = phase_kernels(torch, K, mg, dev)
-    counts = phase_main_path(torch, K, dev, card)
-    phase_full_tile(torch, dev, card)
+    counts, system = phase_main_path(torch, K, dev, card)
+    tile = phase_full_tile(torch, dev, card)
+    counts.update(phase_general_iterate(torch, K, dev, card, system, tile))
+    del tile
+    counts.update(phase_benchmark_paths(torch, K, dev, card))
+    missing = [name for name in KERNELS if counts.get(name, 0) == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on their paths: {missing}")
     if any(m.startswith("jax") for m in sys.modules):
         raise AssertionError("jax was imported")
     kernels = [

@@ -18,13 +18,13 @@ docstring gives the design and the measurements behind it:
   post-smooth's residual when the V-cycle runs in f32.
 
 On every level above the coarsest, the V-cycle smooths with the hand-written
-CUDA kernels (``ops/stencil_kernels.jacobi_zero`` before the coarse
-correction, ``jacobi_corr`` with the correction fused in after it); on the
-CPU their plain PyTorch versions run. Those plain versions are the JAX
-module's ``_smooth``/``_smooth_residual`` XLA sweeps (from zero, and after
-the correction add), and ``stencil_kernels.prolong`` is its ``_prolong``.
-The V-cycle always starts from u = 0, as every call site of the JAX V-cycle
-does, so the nonzero-start smoother has no caller here. Loops are Python loops: the PCG stopping test reads one
+CUDA kernels (``ops/stencil_kernels``): before the coarse correction
+``jacobi_zero`` when the incoming iterate is zero (the preconditioner, and
+every level below the top) or ``jacobi`` from a given iterate, and after it
+``jacobi_corr`` with the correction fused in; on the CPU their plain
+PyTorch versions run. Those plain versions are the JAX module's
+``_smooth``/``_smooth_residual`` XLA sweeps, and ``stencil_kernels.prolong``
+is its ``_prolong``. Loops are Python loops: the PCG stopping test reads one
 flag to the host per iteration.
 """
 
@@ -40,7 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import as_tensor, resolve_device
-from ..ops.stencil_kernels import invm_for_kernel, jacobi_corr, jacobi_zero
+from ..ops.stencil_kernels import invm_for_kernel, jacobi, jacobi_corr, jacobi_zero, restrict_rows
 from .cg import CGResult, masked_laplacian, neighbor_degree, neighbor_degree_tensor
 
 _OMEGA = 0.8
@@ -157,13 +157,34 @@ def _dense_coarse_inverse(m: torch.Tensor, deg: torch.Tensor) -> torch.Tensor:
     return torch.linalg.inv(a)
 
 
+def _smooth(u, b, um, deg, omegas, u_is_zero: bool = False, emit_residual: bool = False):
+    """Weighted-Jacobi sweeps, one weight per sweep, on the unknowns of
+    ``um``: the ``jacobi_zero`` kernel when the caller asserts u == 0 (the
+    first sweep needs no A-apply), else ``jacobi`` from ``u``. With
+    ``emit_residual`` returns (u, (b - A u) * m)."""
+    invm = invm_for_kernel(um, deg).to(b.dtype)
+    if u_is_zero:
+        return jacobi_zero(b, invm, omegas, emit_residual=emit_residual)
+    return jacobi(u, b, invm, omegas, emit_residual=emit_residual)
+
+
+def _smooth_residual(u, b, um, deg, omegas, u_is_zero: bool = False):
+    """(smoothed u, post-smooth residual (b - A u) * um) from one kernel."""
+    return _smooth(u, b, um, deg, omegas, u_is_zero, emit_residual=True)
+
+
+def _restrict_cols(rows: torch.Tensor) -> torch.Tensor:
+    """Column pass of the 2x2 block restrict, an odd width padded with a
+    zero column."""
+    if rows.shape[-1] % 2:
+        rows = F.pad(rows, (0, 1))
+    return rows[..., :, 0::2] + rows[..., :, 1::2]
+
+
 def _restrict(r: torch.Tensor) -> torch.Tensor:
     """R = P^T: 2x2 block sum to the coarser grid after padding odd sizes to
     even — rows first, then columns (the reference's pair order)."""
-    h, w = r.shape[-2], r.shape[-1]
-    rp = F.pad(r, (0, w % 2, 0, h % 2))
-    rows = rp[..., 0::2, :] + rp[..., 1::2, :]
-    return rows[..., :, 0::2] + rows[..., :, 1::2]
+    return _restrict_cols(restrict_rows(r))
 
 
 def _coarse_solve(b, um, deg, coarse_inv):
@@ -210,23 +231,33 @@ def prebuild(hier: Hierarchy, dtype: torch.dtype) -> Prebuilt:
     return Prebuilt(levels, invms, hier.coarse_inv)
 
 
-def _v_cycle(pb: Prebuilt, b: torch.Tensor, lvl: int = 0, emit_top_residual: bool = False):
-    """One V-cycle from u = 0 on level ``lvl``: returns u, or with
-    ``emit_top_residual`` (u, (b - A u) * m) — the residual comes out of
-    the top post-smooth kernel, and PCG turns it into A·u."""
+def _v_cycle(pb: Prebuilt, b: torch.Tensor, u: torch.Tensor | None = None, lvl: int = 0,
+             emit_top_residual: bool = False):
+    """One V-cycle on level ``lvl`` from the iterate ``u`` (None: u = 0, as
+    the preconditioner and every level below the top run it): returns u, or
+    with ``emit_top_residual`` (u, (b - A u) * m) — the residual comes out
+    of the top post-smooth kernel, and PCG turns it into A·u."""
     um, deg = pb.levels[lvl]
     if lvl == len(pb.levels) - 1:
-        e = _coarse_solve(b, um, deg, pb.coarse_inv)
+        umf = um.to(b.dtype)
+        if u is None:
+            e = _coarse_solve(b, um, deg, pb.coarse_inv)
+        else:
+            r = (b - masked_laplacian(u, um, deg)) * umf
+            e = u + _coarse_solve(r, um, deg, pb.coarse_inv)
         if emit_top_residual:  # single-level hierarchies: the coarse solve is the top
-            return e, (b - masked_laplacian(e, um, deg)) * um.to(e.dtype)
+            return e, (b - masked_laplacian(e, um, deg)) * umf
         return e
     pre = _smoother_omegas(_PRE_SMOOTH)
     post = tuple(reversed(_smoother_omegas(_POST_SMOOTH)))
     invm = pb.invms[lvl]
-    u, r = jacobi_zero(b, invm, pre, emit_residual=True)
+    if u is None:
+        u, r = jacobi_zero(b, invm, pre, emit_residual=True)
+    else:
+        u, r = jacobi(u, b, invm, pre, emit_residual=True)
     um_c = pb.levels[lvl + 1][0]
     r_c = _restrict(r) * um_c.to(r.dtype)
-    e_c = _v_cycle(pb, r_c, lvl + 1)
+    e_c = _v_cycle(pb, r_c, lvl=lvl + 1)
     return jacobi_corr(u, b, invm, e_c, post, emit_residual=emit_top_residual)
 
 

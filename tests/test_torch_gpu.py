@@ -95,6 +95,89 @@ class TestKernelsOnCard:
 
 
 @pytest.mark.gpu
+class TestSmootherFamilyOnCard:
+    """Kernels 3, 6, 7 and 8: the smoother from a given iterate, the half
+    residual, the separate-operand smoother and the stride-2 idioms."""
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("shape", SHAPES + [(2, 97, 50)])
+    @pytest.mark.parametrize("emit", [False, True])
+    def test_general_and_v2_kernels_bitwise(self, cuda_device, dtype, shape, emit):
+        b, u, _, invm = _cases(cuda_device, dtype, shape, 24)
+        for g, w in _pairs(K.jacobi(u, b, invm, PRE, emit), K.jacobi_plain(u, b, invm, PRE, emit)):
+            assert_bitwise(g, w)
+        um = invm > 0
+        deg = torch.from_numpy(neighbor_degree(shape[1:])).to(cuda_device)
+        got = K.jacobi_v2(u, b, um, deg, 7, 0.8, emit)
+        for g, w in _pairs(got, K.jacobi_v2_plain(u, b, um, deg, 7, 0.8, emit)):
+            assert_bitwise(g, w)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("shape", SHAPES + [(2, 97, 50), (1, 1, 7)])
+    def test_half_residual_bitwise(self, cuda_device, dtype, shape):
+        """Odd heights, a tile cut by the image's bottom edge, one row."""
+        b, _, _, invm = _cases(cuda_device, dtype, shape, 25)
+        u_half, half = K.jacobi_zero(b, invm, PRE, "half")
+        want_u, want_half = K.jacobi_zero_plain(b, invm, PRE, "half")
+        assert_bitwise(u_half, want_u)
+        assert_bitwise(half, want_half)
+        u_full, r_full = K.jacobi_zero(b, invm, PRE, True)
+        assert_bitwise(u_half, u_full)
+        assert_bitwise(half, K.restrict_rows(r_full))
+
+    def test_general_from_zero_equals_zero_start(self, cuda_device):
+        b, _, _, invm = _cases(cuda_device, torch.float32, SHAPES[0], 26)
+        got = K.jacobi(torch.zeros_like(b), b, invm, PRE, True)
+        for g, w in zip(got, K.jacobi_zero(b, invm, PRE, True)):
+            assert torch.equal(g, w)  # up to the sign of zero
+
+    def test_v2_equals_general_kernel_with_omega_repeated(self, cuda_device):
+        b, u, _, invm = _cases(cuda_device, torch.float32, SHAPES[0], 27)
+        deg = torch.from_numpy(neighbor_degree(SHAPES[0][1:])).to(cuda_device)
+        got = K.jacobi_v2(u, b, invm > 0, deg, 6, 0.8, True)
+        for g, w in zip(got, K.jacobi(u, b, invm, (0.8,) * 6, True)):
+            assert torch.equal(g, w)  # up to the sign of zero
+
+    @pytest.mark.parametrize("shape", [(128, 512), (2, 137, 201), (3, 1, 64), (2, 2, 33, 64)])
+    def test_stride2_bitwise(self, cuda_device, shape):
+        x = torch.from_numpy(np.random.default_rng(0).random(shape, np.float32)).to(cuda_device)
+        modes = ["rows", "cols", "both"] + (["interleave"] if shape[-1] % 2 == 0 else [])
+        for mode in modes:
+            assert_bitwise(K.stride2(x, mode), K.stride2_plain(x, mode))
+
+    def test_new_launches_are_counted(self, cuda_device):
+        b, u, _, invm = _cases(cuda_device, torch.float32, (1, 64, 64), 28)
+        K.reset_launch_counts()
+        K.jacobi(u, b, invm, PRE)
+        K.jacobi_zero(b, invm, PRE, "half")
+        K.jacobi_v2(u, b, invm > 0, torch.full_like(invm, 4.0), 3, 0.8)
+        K.stride2(b, "cols")
+        assert K.launch_counts["jacobi"] == K.launch_counts["jacobi_zero_half"] == 1
+        assert K.launch_counts["jacobi_v2"] == K.launch_counts["stride2"] == 1
+        assert K.launch_counts["jacobi_zero"] == 0
+        with pytest.raises(ValueError):
+            K.jacobi(u, b, invm.cpu(), PRE)
+
+
+@pytest.mark.gpu
+def test_general_v_cycle_on_card_matches_cpu(cuda_device):
+    """Stationary cycles u <- V(b, u) on the card (kernels 3, 1, 2) and on
+    the CPU (plain versions): the coarse mat-vec sums in another order, so
+    the iterates agree to 1e-5, not bit for bit."""
+    _, m, _, b, x0 = bench_system(160, 224, 2)
+    out = []
+    for dev in (cuda_device, CPU):
+        hier = mg._device_hierarchy(m, torch.from_numpy(neighbor_degree(m.shape)).to(dev), dev)
+        pb = mg.prebuild(hier, torch.float32)
+        bt = torch.from_numpy(b.astype(np.float32)).to(dev)
+        u = torch.from_numpy(x0.astype(np.float32)).to(dev)
+        for _ in range(3):
+            u = mg._v_cycle(pb, bt, u)
+        out.append(u.cpu())
+    np.testing.assert_allclose(out[0].numpy(), out[1].numpy(), rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
 def test_fill_on_card_matches_cpu(cuda_device):
     """The whole fill on the card (kernels) against the CPU (plain
     versions): the same solution to the solve's own precision."""
