@@ -4,20 +4,26 @@ on one NVIDIA GPU: builds the hand-written kernels from ``csrc/`` with nvcc,
 holds each against its plain PyTorch version, drives the masked fill through
 its public entry points at the size users run, and certifies the results.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                   # the smoke run
+    python3 chip_smoke.py --against DIR     # kernels of the tree in DIR against these
 
 Phases (each raises on failure, so the run exits non-zero):
 
 1. device: the card's name and power limit, TF32 off for matmuls and cuDNN;
 2. build: nvcc builds ``csrc/*.cu`` into ``csrc/build/``, one compiler
-   process per source, all started together (seconds printed);
+   process per source, all started together (seconds printed, and the
+   compiler's register and spill report);
 3. kernels: each of the eight kernels against its plain version on the
-   card, at the main path's level-0 shape (13x2048x2048 f32) and at
-   2x1373x1374 in f32 and bf16 storage (the stride-2 kernel at the probe's
-   128x512 and at 13x2048x2048, f32) — bit-equal required; median times of
-   both; the general smoother from u = 0 against the zero-start one, the
-   separate-operand smoother against the general one with omega repeated,
-   the half residual against the row pass of the full one;
+   card, at the main path's level-0 shape (13x2048x2048 f32) on the bench
+   mask and on a 60 % random mask, and at 2x1373x1374 in f32 and bf16
+   storage (the stride-2 kernel at the probe's 128x512 and at 13x2048x2048
+   f32, in all four modes beside torch's own call, and at widths 1, 3, 7, 9,
+   33 and on an x whose address is 4 mod 16 bytes) — bit-equal required;
+   median times of both; each kernel's bound at the main shape, for the
+   dense count and for what the bench mask needs; the general smoother
+   from u = 0 against the zero-start one, the separate-operand smoother
+   against the general one with omega repeated, the half residual against
+   the row pass of the full one;
 4. main path: ``filling_missing_portions_smooth_boundaries`` and
    ``blend_images_poisson`` on bench.py's 13-band 2048^2 system, then
    ``multigrid.solve`` on it to 1e-6 (median of 5 after a warm-up); every
@@ -42,11 +48,24 @@ runs with every count set to 0 just before it.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside it, the script prints no result and exits non-zero.
+
+``--against DIR`` compares the compiled kernels of another checkout (DIR,
+e.g. the parent commit unpacked with ``git archive``) with this one's on
+one card, in turns parent, change, change, parent: phases 1 and 2, then
+kernels 1, 2, 3, 6 and 7 at 13x2048x2048 f32 on the bench mask and the 60 %
+mask, kernel 8 in its four modes beside torch's call, ``multigrid.solve``
+on the bench system and one warm 10980^2 band. The two libraries share
+this tree's Python and C interface; the kernels of both must be bit-equal
+to their plain versions. It ends with one ``{"against": ...}`` line.
 """
 
 from __future__ import annotations
 
+import argparse
+import contextlib
+import importlib.util
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -74,6 +93,11 @@ KERNELS = {
     "stride2": (f"{CSRC}/stride.cu", "benchmarks/x_stride_probe.py:29"),
 }
 STRIDE2_TIMED = "both"  # the mode whose times stand in the kernels line
+# the kernels --against times, each on the bench mask and the 60 % mask
+AGAINST = ("jacobi_zero", "jacobi_corr", "jacobi", "jacobi_zero_half", "jacobi_v2")
+# published peaks of one H100 SXM at its 700 W limit: HBM3 bytes/s, f32 flop/s
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
 # a stationary cycle may raise the residual only within this factor of the
 # f32 floor (the residual of the f32-rounded solution)
 FLOOR_FACTOR = 4.0
@@ -241,17 +265,27 @@ def phase_build(K):
             log(f"[2 build]   {line.strip()}")
 
 
-def _median_ms(torch, fn, runs=7):
+def _median_ms(torch, fn, runs=7, min_ms=2.0):
+    """Median over ``runs`` samples of one call's device time. Each sample
+    times back-to-back calls between two CUDA events, as many as fill
+    ``min_ms``: one wrapper call costs the host ~50 us, which a single timed
+    call would count whenever the kernel is shorter."""
     fn()
     torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    torch.cuda.synchronize()
+    reps = max(1, math.ceil(min_ms / max(a.elapsed_time(b), 1e-3)))
     times = []
     for _ in range(runs):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(reps):
+            fn()
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / reps)
     return statistics.median(times)
 
 
@@ -280,69 +314,201 @@ def _value_diff(torch, got, want):
     return err, signs
 
 
-def phase_kernels(torch, K, mg, dev):
-    """Every kernel bit-equal to its plain version; times at the main shape."""
+def _sectors(torch, need, elt=4):
+    """32-byte sectors of a row-major raster of ``elt``-byte cells that hold
+    a True cell of the (H, W) ``need``."""
+    per = 32 // elt
+    flat = need.reshape(-1)
+    pad = (-flat.numel()) % per
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    return int(flat.view(-1, per).any(dim=1).sum())
+
+
+def _dilate4(torch, m):
+    """m or any of its 4-neighbours."""
+    import torch.nn.functional as F
+
+    p = F.pad(m.to(torch.uint8), (1, 1, 1, 1)).bool()
+    h, w = m.shape
+    return m | p[:h, 1:-1] | p[2:, 1:-1] | p[1:-1, :w] | p[1:-1, 2:]
+
+
+def kernel_work(torch, um, c, sweeps):
+    """Per kernel at (c, H, W) f32 on the mask ``um``: (dense bytes, bytes
+    this mask needs, flops). Dense: every operand read once, every output
+    written once. For this mask: invm everywhere; b and x_hi only in the
+    32-byte sectors that hold an unknown cell; the residual kernels' image
+    and x_lo in those that hold an unknown cell or a 4-neighbour of one;
+    e_c in those that hold the coarse parent of an unknown cell; u in full
+    where known cells are copied; every output in full. Kernel 7 masks by
+    multiplies, so the sign of each output zero depends on every b and u:
+    its two counts agree, as kernel 8's, which reads no mask. The flops
+    count ~10 a sweep and ~8 for the residual on each cell that computes,
+    ~40 for a residual cascade."""
+    import torch.nn.functional as F
+
+    h, w = um.shape
+    hc, wc = (h + 1) // 2, (w + 1) // 2
+    plane = h * w * 4
+    ras = c * plane
+    ec = c * hc * wc * 4
+    half = c * hc * w * 4
+    unk = c * 32 * _sectors(torch, um)
+    nbr = c * 32 * _sectors(torch, _dilate4(torch, um))
+    coarse = F.pad(um.to(torch.uint8), (0, 2 * wc - w, 0, 2 * hc - h)).view(hc, 2, wc, 2)
+    ec_unk = c * 32 * _sectors(torch, coarse.amax(dim=(1, 3)).bool())
+    n_unk = c * int(um.sum())
+    jac = n_unk * (10 * sweeps + 8)
+    res = n_unk * 40
+    v2 = 2 * ras + 2 * plane + 2 * ras
+    both = stride2_bytes(STRIDE2_TIMED, (c, h, w))
+    return {
+        "jacobi_zero": (ras + plane + 2 * ras, unk + plane + 2 * ras, jac),
+        "jacobi_corr": (2 * ras + plane + ec + 2 * ras, ras + unk + plane + ec_unk + 2 * ras, jac),
+        "jacobi": (2 * ras + plane + 2 * ras, ras + unk + plane + 2 * ras, jac),
+        "residual_entry": (ras + plane + 2 * ras, nbr + plane + 2 * ras, res),
+        "residual_pair": (3 * ras + plane + ras, 2 * nbr + unk + plane + ras, res),
+        "jacobi_zero_half": (ras + plane + ras + half, unk + plane + ras + half, jac),
+        "jacobi_v2": (v2, v2, c * h * w * (10 * sweeps + 8)),
+        "stride2": (both, both, 0),
+    }
+
+
+def stride2_bytes(mode, shape):
+    """Bytes kernel 8 must move on an f32 x of ``shape`` (..., rows, cols):
+    the rows it reads (the even ones for "rows" and "both", whose every
+    32-byte sector holds an even column; the first half of each row for
+    "interleave") and its output."""
+    *lead, r, c = shape
+    n = int(np.prod(lead, dtype=np.int64))
+    rh, ch = (r + 1) // 2, (c + 1) // 2
+    read = {"rows": rh * c, "cols": r * c, "both": rh * c, "interleave": r * (c // 2)}[mode]
+    write = {"rows": rh * c, "cols": r * ch, "both": rh * ch, "interleave": r * c}[mode]
+    return 4 * n * (read + write)
+
+
+def bound_ms(nbytes, flops):
+    """(the least ms the card could take, what bounds it) at its published
+    peaks."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_stride2_edges(torch, K, dev):
+    """Kernel 8 bit-equal at ragged widths, odd row counts, one row, and on
+    an x whose address is 4 mod 16 bytes (its scalar path)."""
+    gen = np.random.default_rng(1)
+    xs = []
+    for width in (1, 3, 7, 8, 9, 33, 64):
+        for shape in ((2, 5, width), (3, 1, width), (2, 2, 6, width)):
+            xs.append(torch.from_numpy(gen.random(shape, np.float32)).to(dev))
+    flat = torch.from_numpy(gen.random(3 * 7 * 64 + 1, np.float32)).to(dev)
+    unaligned = flat[1:].view(3, 7, 64)
+    if unaligned.data_ptr() % 16 != 4:
+        raise AssertionError(f"expected an address 4 mod 16, got {unaligned.data_ptr() % 16}")
+    xs.append(unaligned)
+    for x in xs:
+        for mode in K.STRIDE2_MODES:
+            if mode != "interleave" or x.shape[-1] % 2 == 0:
+                _bitwise(torch, K.stride2(x, mode), K.stride2_plain(x, mode))
+    log("[3 kernels] stride2 bit-equal at widths 1, 3, 7, 8, 9, 33, 64 (5, 1 and 2x6 rows) "
+        "and on an x at 4 mod 16 bytes")
+
+
+def kernel_inputs(torch, K, mg, tag, shape, dtype, dev):
+    """The kernels' inputs at ``shape`` on the bench mask (``tag`` "main") or
+    on a 60 % random mask, drawn from a generator seeded by the shape, and
+    each kernel's call beside its plain version on them: ``calls`` with the
+    residual emitted, ``bare`` the three smoothers without it (as every level
+    below the top calls them)."""
+    from types import SimpleNamespace
+
     from satellite_approximation_tpu_torch.models.cg import neighbor_degree_tensor
 
+    c, h, w = shape
     pre = mg._smoother_omegas(mg._PRE_SMOOTH)
     post = tuple(reversed(mg._smoother_omegas(mg._POST_SMOOTH)))
-    v2_omegas = (0.8,) * mg._PRE_SMOOTH
+    v2 = (0.8,) * mg._PRE_SMOOTH
+    g = torch.Generator(device=dev).manual_seed(h + c)
+    if tag == "main":
+        um = torch.from_numpy(make_mask(h, w)).to(dev)
+    else:
+        um = torch.rand((h, w), generator=g, device=dev) > 0.4
+    deg = neighbor_degree_tensor(h, w, dev)
+    invm = K.invm_for_kernel(um, deg).to(dtype)
+    b = torch.rand(shape, generator=g, device=dev).to(dtype)
+    u = torch.rand(shape, generator=g, device=dev).to(dtype)
+    e_c = torch.randn((c, (h + 1) // 2, (w + 1) // 2), generator=g, device=dev).to(dtype)
+    img = torch.round(torch.rand(shape, generator=g, device=dev) * 10000)
+    x_hi = torch.rand(shape, generator=g, device=dev) * 9000 * um
+    x_lo = torch.randn(shape, generator=g, device=dev) * 1e-4 * um
+
+    def pair(name, *args):
+        kern, plain = getattr(K, name), getattr(K, f"{name}_plain")
+        return (lambda: kern(*args)), (lambda: plain(*args))
+
+    calls = {
+        "jacobi_zero": pair("jacobi_zero", b, invm, pre, True),
+        "jacobi_corr": pair("jacobi_corr", u, b, invm, e_c, post, True),
+        "jacobi": pair("jacobi", u, b, invm, pre, True),
+        "residual_entry": pair("residual_entry", img, invm),
+        "residual_pair": pair("residual_pair", img, x_hi, x_lo, invm),
+        "jacobi_zero_half": pair("jacobi_zero", b, invm, pre, "half"),
+        "jacobi_v2": pair("jacobi_v2", u, b, um, deg, len(v2), v2[0], True),
+    }
+    bare = {
+        "jacobi_zero": pair("jacobi_zero", b, invm, pre, False),
+        "jacobi_corr": pair("jacobi_corr", u, b, invm, e_c, post, False),
+        "jacobi": pair("jacobi", u, b, invm, pre, False),
+    }
+    return SimpleNamespace(um=um, deg=deg, invm=invm, b=b, u=u, pre=pre, v2=v2,
+                           calls=calls, bare=bare)
+
+
+def phase_kernels(torch, K, mg, dev):
+    """Every kernel bit-equal to its plain version; times and bounds at the
+    main shape on the bench mask and on a 60 % mask."""
     results = {name: {"max_abs_err": 0.0} for name in KERNELS}
+    bounds = {}
 
     def record(name, tag, shape, dtype, kern, plain, label=None):
         err = _bitwise(torch, kern(), plain())
         res = results[name]
         res["max_abs_err"] = max(res["max_abs_err"], err)
         ms, plain_ms = _median_ms(torch, kern), _median_ms(torch, plain)
-        if tag == "main" and (label is None or label == STRIDE2_TIMED):
-            res["ms"], res["plain_ms"] = ms, plain_ms
-        log(f"[3 kernels] {label or name:16s} {'x'.join(map(str, shape))} {str(dtype)[6:]:8s} "
-            f"bit-equal max|d|={err:.1e} kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+        line = (f"[3 kernels] {tag:5s} {label or name:16s} {'x'.join(map(str, shape))} "
+                f"{str(dtype)[6:]:8s} bit-equal max|d|={err:.1e} kernel {ms:.4f} ms "
+                f"plain {plain_ms:.4f} ms")
+        if name in bounds:
+            dense_bytes, need_bytes, flops = bounds[name]
+            if name == "stride2":
+                dense_bytes = need_bytes = stride2_bytes(label, shape)
+            dense, need, by = bound_ms(dense_bytes, flops)[0], *bound_ms(need_bytes, flops)
+            line += (f"; bound dense {dense:.4f} ms ({dense / ms:.0%}), this mask {need:.4f} ms "
+                     f"({need / ms:.0%}, {by})")
+            if tag == "main" and label in (None, STRIDE2_TIMED):
+                res.update(ms=ms, plain_ms=plain_ms, bound_ms=need, bound_by=by,
+                           # kernel 8's plain version is torch's own call, a
+                           # strided slice and .contiguous()
+                           library_ms=plain_ms if name == "stride2" else None)
+        log(line)
 
-    cases = [((BANDS, H, W), torch.float32, "main"), ((2, 1373, 1374), torch.float32, "odd"),
-             ((2, 1373, 1374), torch.bfloat16, "odd")]
-    for (c, h, w), dtype, tag in cases:
-        g = torch.Generator(device=dev).manual_seed(h + c)
-        if tag == "main":
-            um = torch.from_numpy(make_mask(h, w)).to(dev)
-        else:
-            um = torch.rand((h, w), generator=g, device=dev) > 0.4
-        deg = neighbor_degree_tensor(h, w, dev)
-        invm = K.invm_for_kernel(um, deg).to(dtype)
-        b = torch.rand((c, h, w), generator=g, device=dev).to(dtype)
-        u = torch.rand((c, h, w), generator=g, device=dev).to(dtype)
-        e_c = torch.randn((c, (h + 1) // 2, (w + 1) // 2), generator=g, device=dev).to(dtype)
-        img = torch.round(torch.rand((c, h, w), generator=g, device=dev) * 10000)
-        x_hi = torch.rand((c, h, w), generator=g, device=dev) * 9000 * um
-        x_lo = torch.randn((c, h, w), generator=g, device=dev) * 1e-4 * um
-        calls = {
-            "jacobi_zero": (lambda: K.jacobi_zero(b, invm, pre, True),
-                            lambda: K.jacobi_zero_plain(b, invm, pre, True)),
-            "jacobi_corr": (lambda: K.jacobi_corr(u, b, invm, e_c, post, True),
-                            lambda: K.jacobi_corr_plain(u, b, invm, e_c, post, True)),
-            "jacobi": (lambda: K.jacobi(u, b, invm, pre, True),
-                       lambda: K.jacobi_plain(u, b, invm, pre, True)),
-            "residual_entry": (lambda: K.residual_entry(img, invm),
-                               lambda: K.residual_entry_plain(img, invm)),
-            "residual_pair": (lambda: K.residual_pair(img, x_hi, x_lo, invm),
-                              lambda: K.residual_pair_plain(img, x_hi, x_lo, invm)),
-            "jacobi_zero_half": (lambda: K.jacobi_zero(b, invm, pre, "half"),
-                                 lambda: K.jacobi_zero_plain(b, invm, pre, "half")),
-            "jacobi_v2": (lambda: K.jacobi_v2(u, b, um, deg, len(v2_omegas), v2_omegas[0], True),
-                          lambda: K.jacobi_v2_plain(u, b, um, deg, len(v2_omegas), v2_omegas[0],
-                                                    True)),
-        }
-        # the smoothers without their residual run on every level below the top
-        for name, kern, plain in (
-            ("jacobi_corr", lambda: K.jacobi_corr(u, b, invm, e_c, post, False),
-             lambda: K.jacobi_corr_plain(u, b, invm, e_c, post, False)),
-            ("jacobi", lambda: K.jacobi(u, b, invm, pre, False),
-             lambda: K.jacobi_plain(u, b, invm, pre, False)),
-        ):
+    cases = [((BANDS, H, W), torch.float32, "main"), ((BANDS, H, W), torch.float32, "dense"),
+             ((2, 1373, 1374), torch.float32, "odd"), ((2, 1373, 1374), torch.bfloat16, "odd")]
+    for shape, dtype, tag in cases:
+        x = kernel_inputs(torch, K, mg, tag, shape, dtype, dev)
+        b, u, invm, um, deg, pre, v2 = x.b, x.u, x.invm, x.um, x.deg, x.pre, x.v2
+        bounds = kernel_work(torch, um, shape[0], len(pre)) if tag in ("main", "dense") else {}
+        if bounds:
+            need = ", ".join(f"{k} {v[1] / 1e9:.3f}" for k, v in bounds.items())
+            log(f"[3 kernels] {tag}: {float(um.float().mean()) * 100:.2f}% unknown; GB this mask "
+                f"needs: {need}")
+        for name, (kern, plain) in x.bare.items():
             err = _bitwise(torch, kern(), plain())
             results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
-        for name, (kern, plain) in calls.items():
-            record(name, tag, (c, h, w), dtype, kern, plain)
+        for name, (kern, plain) in x.calls.items():
+            record(name, tag, shape, dtype, kern, plain)
 
         # kernel 3 from u = 0 is kernel 1, up to the sign of zero
         err, signs = _value_diff(torch, K.jacobi(torch.zeros_like(b), b, invm, pre, True),
@@ -352,31 +518,73 @@ def phase_kernels(torch, K, mg, dev):
         log(f"[3 kernels] jacobi(u=0) vs jacobi_zero: max|d|={err:.1e}, {signs} zeros of "
             "opposite sign")
         # kernel 6's half residual is the row pass of kernel 1's full residual
-        _, r_full = K.jacobi_zero(b, invm, pre, True)
-        _bitwise(torch, K.jacobi_zero(b, invm, pre, "half")[1], K.restrict_rows(r_full))
+        _bitwise(torch, K.jacobi_zero(b, invm, pre, "half")[1],
+                 K.restrict_rows(K.jacobi_zero(b, invm, pre, True)[1]))
         log("[3 kernels] jacobi_zero_half vs row pass of jacobi_zero's residual: bit-equal")
         # kernel 7 against kernel 3 with omega repeated (benchmarks/x_kernel_v2.py:265-275);
         # in bf16 kernel 3 reads 1/deg rounded to bf16, kernel 7 computes it in f32
-        err, signs = _value_diff(
-            torch, K.jacobi_v2(u, b, um, deg, len(v2_omegas), v2_omegas[0], True),
-            K.jacobi(u, b, invm, v2_omegas, True),
-        )
-        log(f"[3 kernels] jacobi_v2 vs jacobi, omega {v2_omegas[0]} x{len(v2_omegas)}, "
+        err, signs = _value_diff(torch, K.jacobi_v2(u, b, um, deg, len(v2), v2[0], True),
+                                 K.jacobi(u, b, invm, v2, True))
+        log(f"[3 kernels] jacobi_v2 vs jacobi, omega {v2[0]} x{len(v2)}, "
             f"{str(dtype)[6:]}: max|d|={err:.3e}, {signs} zeros of opposite sign")
         if dtype == torch.float32 and err != 0.0:
             raise AssertionError(f"jacobi_v2 differs from jacobi in f32: max |d| {err}")
         if tag == "main":
             for mode in K.STRIDE2_MODES:
-                record("stride2", tag, (c, h, w), dtype, lambda mode=mode: K.stride2(b, mode),
+                record("stride2", tag, shape, dtype, lambda mode=mode: K.stride2(b, mode),
                        lambda mode=mode: K.stride2_plain(b, mode), label=mode)
-        del b, u, e_c, img, x_hi, x_lo, invm, calls, r_full
+        del x, b, u, invm, um, deg
         torch.cuda.empty_cache()
+    bounds = {}
     x = torch.from_numpy(np.random.default_rng(0).random((128, 512), np.float32)).to(dev)
     for mode in K.STRIDE2_MODES:
         record("stride2", "probe", (128, 512), torch.float32,
                lambda mode=mode: K.stride2(x, mode), lambda mode=mode: K.stride2_plain(x, mode),
                label=mode)
+    check_stride2_edges(torch, K, dev)
     return results
+
+
+def bench_images():
+    """bench.py's 13-band 2048^2 system: (its mask, its f64 images)."""
+    umask = make_mask(H, W)
+    return umask, np.stack([smooth(H, W, s) for s in range(BANDS)]).astype(np.float64)
+
+
+def bench_rhs(umask, imgs):
+    """bench.py's rhs system on ``imgs``: the in-image degree and
+    b = the sum of the known neighbours, on unknowns."""
+    h, w = umask.shape
+    deg = np.full((h, w), 4.0, dtype=np.float32)
+    deg[0, :] -= 1
+    deg[-1, :] -= 1
+    deg[:, 0] -= 1
+    deg[:, -1] -= 1
+    known = imgs * (~umask)
+    p = np.pad(known, ((0, 0), (1, 1), (1, 1)))
+    b = (p[:, :-2, 1:-1] + p[:, 2:, 1:-1] + p[:, 1:-1, :-2] + p[:, 1:-1, 2:]) * umask
+    return deg, b
+
+
+def timed_solves(torch, K, multigrid, b_t, umask, deg, x0_t, runs=5):
+    """``multigrid.solve`` to TOL once to warm up and ``runs`` times timed:
+    (the last result, the wall times, the kernel launches of the last)."""
+
+    def solve_once():
+        res = multigrid.solve(b_t, umask, deg=deg, x0=x0_t, tolerance=TOL,
+                              refinement_steps=4, device_output=True)
+        torch.cuda.synchronize()
+        return res
+
+    solve_once()  # warm-up
+    times = []
+    for _ in range(runs):
+        before = dict(K.launch_counts)
+        t0 = time.perf_counter()
+        res = solve_once()
+        times.append(time.perf_counter() - t0)
+    per_solve = {k: v - before[k] for k, v in K.launch_counts.items()}
+    return res, times, per_solve
 
 
 def phase_main_path(torch, K, dev, card):
@@ -396,8 +604,7 @@ def phase_main_path(torch, K, dev, card):
     log(f"[4 main] small fill 2x130x97 vs scipy spsolve: max|d|={small_err:.2e} "
         f"residual {small.error:.2e}")
 
-    umask = make_mask(H, W)
-    imgs = np.stack([smooth(H, W, s) for s in range(BANDS)]).astype(np.float64)
+    umask, imgs = bench_images()
     repl = np.stack([smooth(H, W, 100 + s) for s in range(BANDS)]).astype(np.float64)
     um_t = torch.from_numpy(umask).to(dev)
     n_masked = int(umask.sum()) * BANDS
@@ -427,29 +634,10 @@ def phase_main_path(torch, K, dev, card):
         raise AssertionError(f"blend residual {rel_blend} > {TOL}")
     log(f"[4 main] blend_images_poisson: {t_blend:.4f} s, f64 residual {rel_blend:.3e} <= {TOL}")
 
-    deg = np.full((H, W), 4.0, dtype=np.float32)
-    deg[0, :] -= 1
-    deg[-1, :] -= 1
-    deg[:, 0] -= 1
-    deg[:, -1] -= 1
-    known = imgs * (~umask)
-    p = np.pad(known, ((0, 0), (1, 1), (1, 1)))
-    b = (p[:, :-2, 1:-1] + p[:, 2:, 1:-1] + p[:, 1:-1, :-2] + p[:, 1:-1, 2:]) * umask
+    deg, b = bench_rhs(umask, imgs)
     b_t = torch.from_numpy(b).to(dev)
     x0_t = torch.from_numpy(imgs * umask).to(dev)
-
-    def solve_once():
-        res = multigrid.solve(b_t, umask, deg=deg, x0=x0_t, tolerance=TOL,
-                              refinement_steps=4, device_output=True)
-        torch.cuda.synchronize()
-        return res
-
-    solve_once()  # warm-up
-    times = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        res = solve_once()
-        times.append(time.perf_counter() - t0)
+    res, times, per_solve = timed_solves(torch, K, multigrid, b_t, umask, deg, x0_t)
     counts = dict(K.launch_counts)
     med = statistics.median(times)
     # rhs mode: b is given, so re-evaluate b - A x directly
@@ -466,7 +654,8 @@ def phase_main_path(torch, K, dev, card):
     counts = {k: counts[k] for k in ("jacobi_zero", "jacobi_corr", "residual_entry",
                                      "residual_pair")}
     missing = [k for k, v in counts.items() if v == 0]
-    log(f"[4 main] kernel launches on the main path: {counts}")
+    log(f"[4 main] kernel launches on the main path: {counts}; in one multigrid.solve: "
+        f"{ {k: v for k, v in per_solve.items() if v} }")
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     # phase 6 reuses the system; kept on the host, so phase 5's peak memory
@@ -474,30 +663,35 @@ def phase_main_path(torch, K, dev, card):
     return counts, (umask, deg, b, imgs * umask)
 
 
-def phase_full_tile(torch, dev, card):
+def band_fill(torch, m, img, dev):
+    """One ``laplace_fill`` of the band ``img`` on the mask ``m`` to TOL,
+    checked: (seconds, iterations, certified residual, peak GiB)."""
     from satellite_approximation_tpu_torch.models import fill
 
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = fill.laplace_fill(img, m, tolerance=TOL, device=dev)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    out = res.x
+    if out.shape != m.shape and out.shape != (1, *m.shape):
+        raise AssertionError(f"tile output shape {tuple(out.shape)}")
+    if not (bool(torch.isfinite(out).all()) and res.error <= TOL):
+        raise AssertionError(f"tile fill: residual {res.error} or non-finite output")
+    if not torch.equal(out[..., ~m], img[..., ~m]):
+        raise AssertionError("tile fill changed known pixels")
+    return dt, res.iterations, res.error, torch.cuda.max_memory_allocated() / 2**30
+
+
+def phase_full_tile(torch, dev, card):
     m = tile_mask(torch, TILE, dev)
     img = tile_image(torch, TILE, dev)
     torch.cuda.synchronize()
     log(f"[5 tile] 1x{TILE}x{TILE}, {float(m.float().mean()) * 100:.2f}% masked")
     for run in ("cold", "warm"):
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        res = fill.laplace_fill(img, m, tolerance=TOL, device=dev)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        out = res.x
-        if out.shape != (TILE, TILE) and out.shape != (1, TILE, TILE):
-            raise AssertionError(f"tile output shape {tuple(out.shape)}")
-        if not (bool(torch.isfinite(out).all()) and res.error <= TOL):
-            raise AssertionError(f"tile fill: residual {res.error} or non-finite output")
-        if not torch.equal(out[..., ~m], img[..., ~m]):
-            raise AssertionError("tile fill changed known pixels")
-        log(f"[5 tile] laplace_fill ({run} hierarchy): {dt:.4f} s, {res.iterations} iterations, "
-            f"certified {res.error:.3e}, peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
-            f"[{card}]")
-        del res, out
+        dt, iters, err, peak = band_fill(torch, m, img, dev)
+        log(f"[5 tile] laplace_fill ({run} hierarchy): {dt:.4f} s, {iters} iterations, "
+            f"certified {err:.3e}, peak {peak:.3f} GiB [{card}]")
     return m, img
 
 
@@ -672,9 +866,121 @@ def phase_benchmark_paths(torch, K, dev, card):
     return counts
 
 
+def load_kernels_of(tree: Path):
+    """``ops/stencil_kernels.py`` of the checkout at ``tree``, under a name of
+    its own: it builds that checkout's ``csrc/`` into that checkout's
+    ``csrc/build/``."""
+    path = tree / "satellite_approximation_tpu_torch" / "ops" / "stencil_kernels.py"
+    spec = importlib.util.spec_from_file_location("against_stencil_kernels", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def kernels_from(K, lib):
+    """Inside the block, K's wrappers launch the kernels of the loaded
+    library ``lib``."""
+    own = K._library
+    K._library = lambda: lib
+    try:
+        yield
+    finally:
+        K._library = own
+
+
+def phase_against(torch, K, mg, dev, card, tree: Path):
+    """The compiled kernels of the checkout at ``tree`` ("parent") against
+    this one's ("change"), under this tree's Python: each measurement runs
+    with one library, then the other, in turns parent, change, change,
+    parent (kernel 8 also torch's own call in turns between them)."""
+    t0 = time.perf_counter()
+    libs = {"parent": load_kernels_of(tree)._library(), "change": K._library()}
+    log(f"[ab] kernels of {tree} built in {time.perf_counter() - t0:.3f} s")
+    order = ("parent", "change", "change", "parent")
+    out = {"card": card, "order": order, "kernels": {}, "stride2": {}}
+
+    def in_turns(fns, names, measure=lambda fn: _median_ms(torch, fn)):
+        """{name: [measure(fns[name]) in each of its turns]}; a name that is
+        a library runs its function with that library's kernels."""
+        got = {n: [] for n in names}
+        for n in names:
+            with kernels_from(K, libs[n]) if n in libs else contextlib.nullcontext():
+                got[n].append(measure(fns[n]))
+        return got
+
+    def both_bit_equal(kern, want):
+        for lib in libs.values():
+            with kernels_from(K, lib):
+                _bitwise(torch, kern(), want)
+
+    def time_kernels(tag):
+        x = kernel_inputs(torch, K, mg, tag, (BANDS, H, W), torch.float32, dev)
+        for name in AGAINST:
+            kern, plain = x.calls[name]
+            both_bit_equal(kern, plain())
+            t = in_turns(dict.fromkeys(libs, kern), order)
+            out["kernels"][f"{name}/{tag}"] = t
+            log(f"[ab] {name:16s} {tag:5s} {BANDS}x{H}x{W} f32, both bit-equal: parent "
+                f"{t['parent']} ms, change {t['change']} ms [{card}]")
+        if tag == "main":
+            for mode in K.STRIDE2_MODES:
+                kern = lambda mode=mode: K.stride2(x.b, mode)  # noqa: E731
+                torch_call = lambda mode=mode: K.stride2_plain(x.b, mode)  # noqa: E731
+                both_bit_equal(kern, torch_call())
+                t = in_turns({**dict.fromkeys(libs, kern), "torch": torch_call},
+                             ("parent", "change", "torch", "torch", "change", "parent"))
+                out["stride2"][mode] = t
+                log(f"[ab] stride2 {mode:10s} {BANDS}x{H}x{W} f32, both bit-equal: parent "
+                    f"{t['parent']} ms, change {t['change']} ms, torch {t['torch']} ms [{card}]")
+
+    for tag in ("main", "dense"):
+        time_kernels(tag)
+        torch.cuda.empty_cache()
+
+    umask, imgs = bench_images()
+    sdeg, sb = bench_rhs(umask, imgs)
+    b_t = torch.from_numpy(sb).to(dev)
+    x0_t = torch.from_numpy(imgs * umask).to(dev)
+
+    def solves(_):
+        res, times, _counts = timed_solves(torch, K, mg, b_t, umask, sdeg, x0_t)
+        if res.error > TOL:
+            raise AssertionError(f"solve residual {res.error} > {TOL}")
+        return {"median_s": statistics.median(times), "times_s": times,
+                "iterations": res.iterations, "certified": res.error}
+
+    out["solve"] = in_turns(dict.fromkeys(libs), order, solves)
+    for name in libs:
+        log(f"[ab] multigrid.solve {BANDS}x{H}x{W} to {TOL} with the {name} kernels: "
+            + "; ".join(f"{r['iterations']} iterations, median {r['median_s']:.6f} s, certified "
+                        f"{r['certified']:.3e}" for r in out["solve"][name]) + f" [{card}]")
+    del b_t, x0_t
+    torch.cuda.empty_cache()
+
+    m = tile_mask(torch, TILE, dev)
+    img = tile_image(torch, TILE, dev)
+
+    def band(_):
+        dt, iters, _err, peak = band_fill(torch, m, img, dev)
+        return {"warm_s": dt, "iterations": iters, "peak_gib": peak}
+
+    in_turns(dict.fromkeys(libs), tuple(libs), band)  # the first fill builds the hierarchy
+    out["tile"] = in_turns(dict.fromkeys(libs), order, band)
+    for name in libs:
+        log(f"[ab] laplace_fill 1x{TILE}x{TILE} warm with the {name} kernels: "
+            + "; ".join(f"{r['warm_s']:.4f} s, {r['iterations']} iterations, peak "
+                        f"{r['peak_gib']:.3f} GiB" for r in out["tile"][name]) + f" [{card}]")
+    return out
+
+
 def main() -> int:
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--against", type=Path, default=None,
+                        help="a checkout whose compiled kernels to time against this one's")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
@@ -689,6 +995,10 @@ def main() -> int:
     dev = torch.device("cuda")
     card = phase_device(torch)
     phase_build(K)
+    if args.against is not None:
+        print(json.dumps({"against": phase_against(torch, K, mg, dev, card,
+                                                   args.against.resolve())}))
+        return 0
     results = phase_kernels(torch, K, mg, dev)
     counts, system = phase_main_path(torch, K, dev, card)
     tile = phase_full_tile(torch, dev, card)
@@ -700,10 +1010,10 @@ def main() -> int:
         raise AssertionError(f"kernels never launched on their paths: {missing}")
     if any(m.startswith("jax") for m in sys.modules):
         raise AssertionError("jax was imported")
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts[name], "max_abs_err": results[name]["max_abs_err"],
-         "ms": results[name]["ms"], "plain_ms": results[name]["plain_ms"]}
+         "launches": counts[name], **{k: results[name][k] for k in keys}}
         for name, (src, rep) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}))

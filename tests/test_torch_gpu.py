@@ -24,6 +24,7 @@ from torch_parity import (  # noqa: F401 — cuda_device is a fixture
     assert_bitwise,
     bench_system,
     cuda_device,
+    edge_mask,
     random_mask,
 )
 
@@ -157,6 +158,57 @@ class TestSmootherFamilyOnCard:
         assert K.launch_counts["jacobi_zero"] == 0
         with pytest.raises(ValueError):
             K.jacobi(u, b, invm.cpu(), PRE)
+
+
+@pytest.mark.gpu
+class TestTileSkipAndVectorEdgesOnCard:
+    """The edges the redesigned kernels rely on: jacobi.cu's tile skip (tiles
+    entirely known beside tiles with one unknown cell, unknown cells only in
+    a tile's ring, no unknown cell, a 60 % mask), the signs of zero on known
+    cells, and stride.cu's vector and scalar paths."""
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("kind", ["corner", "ring48", "ring112", "none", "dense"])
+    @pytest.mark.parametrize("shape", [(2, 250, 301), (1, 240, 240)])
+    def test_every_start_and_emit_bitwise(self, cuda_device, dtype, kind, shape):
+        c, h, w = shape
+        rng = np.random.default_rng(29)
+        um = edge_mask(h, w, kind, seed=29)
+        invm = K.invm_for_kernel(torch.from_numpy(um), torch.from_numpy(neighbor_degree((h, w))))
+        b, u = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)) for _ in range(2))
+        u[0, :2] = -0.0  # known cells of either sign of zero
+        u[-1, -1] = 0.0
+        e_c = torch.from_numpy(rng.standard_normal((c, (h + 1) // 2, (w + 1) // 2))
+                               .astype(np.float32))
+        b, u, e_c, invm = (t.to(device=cuda_device, dtype=dtype) for t in (b, u, e_c, invm))
+        for emit in (False, True, "half"):
+            for g, w_ in _pairs(K.jacobi_zero(b, invm, PRE, emit),
+                                K.jacobi_zero_plain(b, invm, PRE, emit)):
+                assert_bitwise(g, w_)
+        for emit in (False, True):
+            for g, w_ in _pairs(K.jacobi(u, b, invm, PRE, emit),
+                                K.jacobi_plain(u, b, invm, PRE, emit)):
+                assert_bitwise(g, w_)
+            for g, w_ in _pairs(K.jacobi_corr(u, b, invm, e_c, POST, emit),
+                                K.jacobi_corr_plain(u, b, invm, e_c, POST, emit)):
+                assert_bitwise(g, w_)
+
+    @pytest.mark.parametrize("width", [1, 3, 7, 8, 9, 33, 64])
+    def test_stride2_widths_bitwise(self, cuda_device, width):
+        """Odd row counts, one row, several leading axes."""
+        rng = np.random.default_rng(width)
+        for shape in ((2, 5, width), (3, 1, width), (2, 2, 6, width)):
+            x = torch.from_numpy(rng.random(shape, np.float32)).to(cuda_device)
+            for mode in K.STRIDE2_MODES:
+                if mode != "interleave" or width % 2 == 0:
+                    assert_bitwise(K.stride2(x, mode), K.stride2_plain(x, mode))
+
+    def test_stride2_unaligned_address_bitwise(self, cuda_device):
+        flat = torch.from_numpy(np.random.default_rng(30).random(3 * 7 * 64 + 1, np.float32))
+        x = flat.to(cuda_device)[1:].view(3, 7, 64)
+        assert x.is_contiguous() and x.data_ptr() % 16 == 4
+        for mode in K.STRIDE2_MODES:
+            assert_bitwise(K.stride2(x, mode), K.stride2_plain(x, mode))
 
 
 @pytest.mark.gpu

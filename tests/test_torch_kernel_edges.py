@@ -1,0 +1,158 @@
+"""The edges that the port's redesigned kernels rely on, held on the CPU
+against the JAX package: jacobi.cu skips every tile whose interior has no
+unknown cell and writes the outputs the plain version gives known cells
+(the sign of each zero included); stride.cu takes a 16-byte path where the
+width and the address allow it and a scalar one elsewhere.
+
+The port's plain versions (which the CPU runs, and against which the
+kernels are held bit for bit on the card by tests/test_torch_gpu.py) are
+compared with the JAX package's XLA route of multigrid._smooth /
+_smooth_residual within 5e-6, and with numpy slicing exactly."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from satellite_approximation_tpu.models import multigrid as JM
+from satellite_approximation_tpu.models.cg import neighbor_degree
+from satellite_approximation_tpu_torch.ops import stencil_kernels as K
+from torch_parity import edge_mask, np32
+
+PRE = JM._smoother_omegas(JM._PRE_SMOOTH)
+POST = tuple(reversed(JM._smoother_omegas(JM._POST_SMOOTH)))
+# XLA's CPU fusion may round the sweep arithmetic differently from
+# one-op-at-a-time torch, carried through K sweeps (as tests/test_torch_smoother.py)
+ATOL = 5e-6
+KINDS = ["none", "corner", "ring48", "ring112", "dense"]
+# ragged against the 48-cell tile in both directions, and an odd height
+SHAPES = [(2, 250, 301), (1, 241, 230)]
+
+
+def _problem(shape, kind, seed=7):
+    c, h, w = shape
+    rng = np.random.default_rng(seed)
+    um = edge_mask(h, w, kind, seed=seed)
+    b = rng.standard_normal(shape).astype(np.float32)
+    u = rng.standard_normal(shape).astype(np.float32)
+    # zeros of both signs on known cells (and on unknown ones)
+    u[:, ::7, ::5] = -0.0
+    u[:, 3::11, 2::9] = 0.0
+    e_c = rng.standard_normal((c, (h + 1) // 2, (w + 1) // 2)).astype(np.float32)
+    return b, u, e_c, um, neighbor_degree((h, w))
+
+
+def _invm(um, dg):
+    return K.invm_for_kernel(torch.from_numpy(um), torch.from_numpy(dg))
+
+
+def _close(got, want):
+    np.testing.assert_allclose(np32(got), np32(want), rtol=0, atol=ATOL)
+
+
+def _bits(x):
+    return np32(x).view(np.int32)
+
+
+def _jax_post_smooth(u, b, um, dg, e_c, emit):
+    """The JAX V-cycle's post-smooth: u + prolong(e_c) * m, then the
+    reversed weights (multigrid._v_cycle, its XLA route)."""
+    ju, jb, jum, jdg = (jnp.asarray(x) for x in (u, b, um, dg))
+    ju = ju + JM._prolong(jnp.asarray(e_c), ju.shape) * jum.astype(ju.dtype)
+    return (JM._smooth_residual if emit else JM._smooth)(ju, jb, jum, jdg, POST)
+
+
+class TestSmoothersAtTheTileSkipEdges:
+    """Kernels 1, 2, 3 and 6: masks with no unknown cell, one unknown cell in
+    a corner of a few tiles, unknown cells only in a tile's ring, and 60 %."""
+
+    @pytest.mark.parametrize("shape", SHAPES)
+    @pytest.mark.parametrize("kind", KINDS)
+    def test_zero_start_matches_jax(self, shape, kind):
+        b, _, _, um, dg = _problem(shape, kind)
+        jb, jum, jdg = (jnp.asarray(x) for x in (b, um, dg))
+        u, r = K.jacobi_zero(torch.from_numpy(b), _invm(um, dg), PRE, True)
+        want_u, want_r = JM._smooth_residual(jnp.zeros_like(jb), jb, jum, jdg, PRE, u_is_zero=True)
+        _close(u, want_u)
+        _close(r, want_r)
+        # known cells: u and r are +0, as the plain version's selects give them
+        assert (_bits(u)[:, ~um] == 0).all() and (_bits(r)[:, ~um] == 0).all()
+
+    @pytest.mark.parametrize("shape", SHAPES)
+    @pytest.mark.parametrize("kind", KINDS)
+    def test_from_u_matches_jax_and_copies_known_cells(self, shape, kind):
+        b, u, _, um, dg = _problem(shape, kind)
+        ju, jb, jum, jdg = (jnp.asarray(x) for x in (u, b, um, dg))
+        got_u, got_r = K.jacobi(torch.from_numpy(u), torch.from_numpy(b), _invm(um, dg), PRE, True)
+        want_u, want_r = JM._smooth_residual(ju, jb, jum, jdg, PRE)
+        _close(got_u, want_u)
+        _close(got_r, want_r)
+        # known cells keep u bit for bit, -0.0 included; their residual is +0
+        assert np.array_equal(_bits(got_u)[:, ~um], u.view(np.int32)[:, ~um])
+        assert (_bits(got_r)[:, ~um] == 0).all()
+
+    @pytest.mark.parametrize("shape", SHAPES)
+    @pytest.mark.parametrize("kind", KINDS)
+    def test_correction_matches_jax_and_adds_zero_on_known_cells(self, shape, kind):
+        b, u, e_c, um, dg = _problem(shape, kind)
+        got_u, got_r = K.jacobi_corr(torch.from_numpy(u), torch.from_numpy(b), _invm(um, dg),
+                                     torch.from_numpy(e_c), POST, True)
+        want_u, want_r = _jax_post_smooth(u, b, um, dg, e_c, True)
+        _close(got_u, want_u)
+        _close(got_r, want_r)
+        # the plain version adds where(unknown, corr, +0) everywhere: a known
+        # -0.0 comes out +0.0, every other known value unchanged
+        want_known = (u + np.float32(0.0)).view(np.int32)[:, ~um]
+        assert np.array_equal(_bits(got_u)[:, ~um], want_known)
+        assert (_bits(got_u)[:, ~um] != np.int32(-2**31)).all()
+        assert (_bits(got_r)[:, ~um] == 0).all()
+        _close(K.jacobi_corr(torch.from_numpy(u), torch.from_numpy(b), _invm(um, dg),
+                             torch.from_numpy(e_c), POST, False),
+               _jax_post_smooth(u, b, um, dg, e_c, False))
+
+    @pytest.mark.parametrize("h", [241, 97, 1])
+    @pytest.mark.parametrize("kind", ["corner", "ring48", "dense"])
+    def test_half_residual_odd_heights_match_jax_row_pass(self, h, kind):
+        b, _, _, um, dg = _problem((2, h, 130), kind)
+        jb, jum, jdg = (jnp.asarray(x) for x in (b, um, dg))
+        _, r = JM._smooth_residual(jnp.zeros_like(jb), jb, jum, jdg, PRE, u_is_zero=True)
+        r = np.pad(np.asarray(r), ((0, 0), (0, h % 2), (0, 0)))
+        u, half = K.jacobi_zero(torch.from_numpy(b), _invm(um, dg), PRE, "half")
+        assert half.shape == (2, (h + 1) // 2, 130)
+        _close(half, r[:, 0::2, :] + r[:, 1::2, :])
+        # row pairs of known cells are +0
+        known_pairs = ~np.pad(um, ((0, h % 2), (0, 0))).reshape((h + 1) // 2, 2, 130).any(axis=1)
+        assert (_bits(half)[:, known_pairs] == 0).all()
+
+    def test_no_unknown_cell_outputs(self):
+        """A band with no unknown cell: every output is fixed."""
+        b, u, e_c, um, dg = _problem((2, 100, 97), "none")
+        bt, ut, inv = torch.from_numpy(b), torch.from_numpy(u), _invm(um, dg)
+        zu, zr = K.jacobi_zero(bt, inv, PRE, True)
+        assert (_bits(zu) == 0).all() and (_bits(zr) == 0).all()
+        gu, gr = K.jacobi(ut, bt, inv, PRE, True)
+        assert np.array_equal(_bits(gu), u.view(np.int32)) and (_bits(gr) == 0).all()
+        cu = K.jacobi_corr(ut, bt, inv, torch.from_numpy(e_c), POST, False)
+        assert np.array_equal(_bits(cu), (u + np.float32(0.0)).view(np.int32))
+
+
+class TestStride2Widths:
+    """Kernel 8's plain version against numpy slicing, at the widths where
+    the kernel leaves its 16-byte path (not a multiple of 4), the even ones
+    among them for the interleave."""
+
+    @pytest.mark.parametrize("width", [1, 2, 3, 6, 7, 9, 33, 34])
+    @pytest.mark.parametrize("lead", [(2,), (3, 2), ()])
+    @pytest.mark.parametrize("rows", [5, 1, 6])
+    def test_plain_matches_numpy(self, width, lead, rows):
+        x = np.random.default_rng(width).standard_normal((*lead, rows, width)).astype(np.float32)
+        xt = torch.from_numpy(x)
+        for mode, want in (("rows", x[..., 0::2, :]), ("cols", x[..., :, 0::2]),
+                           ("both", x[..., 0::2, 0::2])):
+            got = K.stride2_plain(xt, mode)
+            assert got.is_contiguous() and np.array_equal(got.numpy(), want)
+        if width % 2 == 0:
+            y = K.stride2_plain(xt, "interleave").numpy()
+            half = x[..., : width // 2]
+            assert np.array_equal(y[..., 0::2], half) and np.array_equal(y[..., 1::2], half + 1)

@@ -1,6 +1,6 @@
 """Static checks of the PyTorch port's sources: the repository's stdlib-AST
 lint (tests/test_static_analysis.py), and no import of jax or of the JAX
-package anywhere in the port or in chip_smoke.py."""
+package anywhere in the port, chip_smoke.py or chip_profile.py."""
 
 import ast
 from pathlib import Path
@@ -11,7 +11,7 @@ from test_static_analysis import _module_lint
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "satellite_approximation_tpu_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "chip_profile.py"]
 IDS = [str(p.relative_to(REPO)) for p in SOURCES]
 
 

@@ -83,6 +83,32 @@ def random_mask(h, w, seed, p=0.4):
     return np.random.default_rng(seed).random((h, w)) > p
 
 
+def edge_mask(h, w, kind, seed=0):
+    """Masks at the edges of jacobi.cu's tile skip (48x48 tiles, 8-cell
+    ring): ``none`` (no unknown cell), ``corner`` (one unknown cell in a
+    corner of a few tiles, every other tile entirely known), ``ring48`` and
+    ``ring112`` (unknown cells only just outside a 48^2 or 112^2 interior,
+    inside its ring), ``dense`` (60 % unknown)."""
+    m = np.zeros((h, w), dtype=bool)
+    if kind == "corner":
+        for i, j in ((48, 48), (95, 143), (47, 96), (96, 191)):
+            if 0 < i < h - 1 and 0 < j < w - 1:
+                m[i, j] = True
+    elif kind in ("ring48", "ring112"):
+        t = 48 if kind == "ring48" else 112
+        # around the interior [t, 2t) x [t, 2t): the 8 rows above and below
+        # it, the 8 columns left and right of it
+        for i, j in ((t - 1, t + 5), (t - 8, t + 9), (2 * t, t + 3), (2 * t + 7, 2 * t - 1),
+                     (t + 4, t - 1), (t + 11, t - 8), (t + 2, 2 * t), (2 * t - 1, 2 * t + 7)):
+            if 0 < i < h - 1 and 0 < j < w - 1:
+                m[i, j] = True
+    elif kind == "dense":
+        m = random_mask(h, w, seed, p=0.4)
+    elif kind != "none":
+        raise ValueError(kind)
+    return m
+
+
 def np32(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().float().numpy()
