@@ -18,9 +18,12 @@ Phases (each raises on failure, so the run exits non-zero):
    mask and on a 60 % random mask, and at 2x1373x1374 in f32 and bf16
    storage (the stride-2 kernel at the probe's 128x512 and at 13x2048x2048
    f32, in all four modes beside torch's own call, and at widths 1, 3, 7, 9,
-   33 and on an x whose address is 4 mod 16 bytes) — bit-equal required;
+   33 and on an x whose address is 4 mod 16 bytes; the residual kernels also
+   with 1 and 5 bands at widths 2048 and 1373, and with each operand at an
+   address 4 mod 16 bytes) — bit-equal required;
    median times of both; each kernel's bound at the main shape, for the
-   dense count and for what the bench mask needs; the general smoother
+   dense count and for what the bench mask needs, and torch's time to
+   write the residual kernels' outputs alone (zero_()); the general smoother
    from u = 0 against the zero-start one, the separate-operand smoother
    against the general one with omega repeated, the half residual against
    the row pass of the full one;
@@ -52,11 +55,13 @@ package beside it, the script prints no result and exits non-zero.
 ``--against DIR`` compares the compiled kernels of another checkout (DIR,
 e.g. the parent commit unpacked with ``git archive``) with this one's on
 one card, in turns parent, change, change, parent: phases 1 and 2, then
-kernels 1, 2, 3, 6 and 7 at 13x2048x2048 f32 on the bench mask and the 60 %
-mask, kernel 8 in its four modes beside torch's call, ``multigrid.solve``
-on the bench system and one warm 10980^2 band. The two libraries share
-this tree's Python and C interface; the kernels of both must be bit-equal
-to their plain versions. It ends with one ``{"against": ...}`` line.
+kernels 1-7 at 13x2048x2048 f32 on the bench mask and the 60 % mask (each
+beside the bound that mask needs), kernel 8 in its four modes beside
+torch's call, ``multigrid.solve`` on the bench system, kernels 4 and 5 at
+the 10980^2 band's shape and one warm 10980^2 band. The two libraries
+share this tree's Python and C interface; the kernels of both must be
+bit-equal to their plain versions. It ends with one ``{"against": ...}``
+line.
 """
 
 from __future__ import annotations
@@ -94,7 +99,8 @@ KERNELS = {
 }
 STRIDE2_TIMED = "both"  # the mode whose times stand in the kernels line
 # the kernels --against times, each on the bench mask and the 60 % mask
-AGAINST = ("jacobi_zero", "jacobi_corr", "jacobi", "jacobi_zero_half", "jacobi_v2")
+AGAINST = ("jacobi_zero", "jacobi_corr", "jacobi", "residual_entry", "residual_pair",
+           "jacobi_zero_half", "jacobi_v2")
 # published peaks of one H100 SXM at its 700 W limit: HBM3 bytes/s, f32 flop/s
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
@@ -403,17 +409,63 @@ def check_stride2_edges(torch, K, dev):
     for width in (1, 3, 7, 8, 9, 33, 64):
         for shape in ((2, 5, width), (3, 1, width), (2, 2, 6, width)):
             xs.append(torch.from_numpy(gen.random(shape, np.float32)).to(dev))
-    flat = torch.from_numpy(gen.random(3 * 7 * 64 + 1, np.float32)).to(dev)
-    unaligned = flat[1:].view(3, 7, 64)
-    if unaligned.data_ptr() % 16 != 4:
-        raise AssertionError(f"expected an address 4 mod 16, got {unaligned.data_ptr() % 16}")
-    xs.append(unaligned)
+    xs.append(_shifted(torch.from_numpy(gen.random((3, 7, 64), np.float32)).to(dev)))
     for x in xs:
         for mode in K.STRIDE2_MODES:
             if mode != "interleave" or x.shape[-1] % 2 == 0:
                 _bitwise(torch, K.stride2(x, mode), K.stride2_plain(x, mode))
     log("[3 kernels] stride2 bit-equal at widths 1, 3, 7, 8, 9, 33, 64 (5, 1 and 2x6 rows) "
         "and on an x at 4 mod 16 bytes")
+
+
+def _shifted(t):
+    """A contiguous copy of ``t`` one element past an aligned allocation (an
+    f32 tensor then starts at an address 4 mod 16 bytes)."""
+    flat = t.new_empty(t.numel() + 1)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    if out.data_ptr() % 16 != 4:
+        raise AssertionError(f"expected an address 4 mod 16, got {out.data_ptr() % 16}")
+    return out
+
+
+def residual_inputs(torch, K, um, c, dtype, gen):
+    """(img, x_hi, x_lo, invm) of the residual kernels on the mask ``um`` with
+    ``c`` bands: an integer image, x_hi and x_lo zero on known cells."""
+    from satellite_approximation_tpu_torch.models.cg import neighbor_degree_tensor
+
+    h, w = um.shape
+    dev = um.device
+    invm = K.invm_for_kernel(um, neighbor_degree_tensor(h, w, dev)).to(dtype)
+    img = torch.round(torch.rand((c, h, w), generator=gen, device=dev) * 10000)
+    x_hi = torch.rand((c, h, w), generator=gen, device=dev) * 9000 * um
+    x_lo = torch.randn((c, h, w), generator=gen, device=dev) * 1e-4 * um
+    return img, x_hi, x_lo, invm
+
+
+def check_residual_edges(torch, K, dev):
+    """Kernels 4 and 5 bit-equal with 1 and 5 bands (band groups of every
+    size), at width 2048 (16-byte strips) and 1373 (per-cell path), with f32
+    and bf16 invm, and with img, x_hi, x_lo or invm at an address 4 mod 16
+    bytes (per-cell path)."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def both(img, x_hi, x_lo, invm):
+        _bitwise(torch, K.residual_entry(img, invm), K.residual_entry_plain(img, invm))
+        _bitwise(torch, K.residual_pair(img, x_hi, x_lo, invm),
+                 K.residual_pair_plain(img, x_hi, x_lo, invm))
+
+    for c in (1, 5):
+        for w in (2048, 1373):
+            um = torch.rand((517, w), generator=gen, device=dev) > 0.4
+            for dtype in (torch.float32, torch.bfloat16):
+                both(*residual_inputs(torch, K, um, c, dtype, gen))
+    um = torch.from_numpy(make_mask(517, 2048)).to(dev)
+    ops = residual_inputs(torch, K, um, 5, torch.float32, gen)
+    for k in range(len(ops)):
+        both(*(_shifted(t) if n == k else t for n, t in enumerate(ops)))
+    log("[3 kernels] residual_entry and residual_pair bit-equal with 1 and 5 bands at widths "
+        "2048 and 1373 (f32 and bf16 invm), and with img, x_hi, x_lo or invm at 4 mod 16 bytes")
 
 
 def kernel_inputs(torch, K, mg, tag, shape, dtype, dev):
@@ -440,9 +492,7 @@ def kernel_inputs(torch, K, mg, tag, shape, dtype, dev):
     b = torch.rand(shape, generator=g, device=dev).to(dtype)
     u = torch.rand(shape, generator=g, device=dev).to(dtype)
     e_c = torch.randn((c, (h + 1) // 2, (w + 1) // 2), generator=g, device=dev).to(dtype)
-    img = torch.round(torch.rand(shape, generator=g, device=dev) * 10000)
-    x_hi = torch.rand(shape, generator=g, device=dev) * 9000 * um
-    x_lo = torch.randn(shape, generator=g, device=dev) * 1e-4 * um
+    img, x_hi, x_lo, _ = residual_inputs(torch, K, um, c, dtype, g)
 
     def pair(name, *args):
         kern, plain = getattr(K, name), getattr(K, f"{name}_plain")
@@ -533,6 +583,13 @@ def phase_kernels(torch, K, mg, dev):
             for mode in K.STRIDE2_MODES:
                 record("stride2", tag, shape, dtype, lambda mode=mode: K.stride2(b, mode),
                        lambda mode=mode: K.stride2_plain(b, mode), label=mode)
+            # the residual kernels' output stream alone, as torch writes it
+            outs = (torch.empty_like(b), torch.empty_like(b))
+            for n, name in ((2, "residual_entry"), (1, "residual_pair")):
+                ms = _median_ms(torch, lambda n=n: [o.zero_() for o in outs[:n]])
+                log(f"[3 kernels] {tag:5s} {name} outputs alone (torch zero_() of {n} raster(s)): "
+                    f"{ms:.4f} ms, {n * b.numel() * 4 / ms / 1e9:.3f} TB/s")
+            del outs
         del x, b, u, invm, um, deg
         torch.cuda.empty_cache()
     bounds = {}
@@ -542,6 +599,7 @@ def phase_kernels(torch, K, mg, dev):
                lambda mode=mode: K.stride2(x, mode), lambda mode=mode: K.stride2_plain(x, mode),
                label=mode)
     check_stride2_edges(torch, K, dev)
+    check_residual_edges(torch, K, dev)
     return results
 
 
@@ -914,15 +972,25 @@ def phase_against(torch, K, mg, dev, card, tree: Path):
             with kernels_from(K, lib):
                 _bitwise(torch, kern(), want)
 
-    def time_kernels(tag):
-        x = kernel_inputs(torch, K, mg, tag, (BANDS, H, W), torch.float32, dev)
-        for name in AGAINST:
-            kern, plain = x.calls[name]
+    def time_calls(calls, names, tag, shape, need):
+        """Each kernel of ``names`` in turns, beside the bound that ``need``
+        (kernel_work's counts) gives it."""
+        for name in names:
+            kern, plain = calls[name]
             both_bit_equal(kern, plain())
             t = in_turns(dict.fromkeys(libs, kern), order)
-            out["kernels"][f"{name}/{tag}"] = t
-            log(f"[ab] {name:16s} {tag:5s} {BANDS}x{H}x{W} f32, both bit-equal: parent "
-                f"{t['parent']} ms, change {t['change']} ms [{card}]")
+            bound = bound_ms(need[name][1], need[name][2])[0]
+            out["kernels"][f"{name}/{tag}"] = {**t, "bound_ms": bound}
+            share = {n: [f"{bound / ms:.0%}" for ms in v] for n, v in t.items()}
+            log(f"[ab] {name:16s} {tag:5s} {'x'.join(map(str, shape))} f32, both bit-equal: parent "
+                f"{t['parent']} ms, change {t['change']} ms; this mask's bound {bound:.4f} ms, "
+                f"share parent {share['parent']} change {share['change']} [{card}]")
+
+    def time_kernels(tag):
+        shape = (BANDS, H, W)
+        x = kernel_inputs(torch, K, mg, tag, shape, torch.float32, dev)
+        need = kernel_work(torch, x.um, BANDS, len(x.pre))
+        time_calls(x.calls, AGAINST, tag, shape, need)
         if tag == "main":
             for mode in K.STRIDE2_MODES:
                 kern = lambda mode=mode: K.stride2(x.b, mode)  # noqa: E731
@@ -960,6 +1028,16 @@ def phase_against(torch, K, mg, dev, card, tree: Path):
 
     m = tile_mask(torch, TILE, dev)
     img = tile_image(torch, TILE, dev)
+    # kernels 4 and 5 at the band's shape (C = 1, so one band a group)
+    _, x_hi, x_lo, invm = residual_inputs(torch, K, m, 1, torch.float32,
+                                          torch.Generator(device=dev).manual_seed(TILE))
+    calls = {"residual_entry": (lambda: K.residual_entry(img, invm),
+                                lambda: K.residual_entry_plain(img, invm)),
+             "residual_pair": (lambda: K.residual_pair(img, x_hi, x_lo, invm),
+                               lambda: K.residual_pair_plain(img, x_hi, x_lo, invm))}
+    time_calls(calls, tuple(calls), "tile", (1, TILE, TILE), kernel_work(torch, m, 1, 0))
+    del x_hi, x_lo, invm, calls
+    torch.cuda.empty_cache()
 
     def band(_):
         dt, iters, _err, peak = band_fill(torch, m, img, dev)

@@ -25,7 +25,9 @@ from torch_parity import (  # noqa: F401 — cuda_device is a fixture
     bench_system,
     cuda_device,
     edge_mask,
+    make_mask,
     random_mask,
+    shifted,
 )
 
 PRE = mg._smoother_omegas(mg._PRE_SMOOTH)
@@ -204,11 +206,63 @@ class TestTileSkipAndVectorEdgesOnCard:
                     assert_bitwise(K.stride2(x, mode), K.stride2_plain(x, mode))
 
     def test_stride2_unaligned_address_bitwise(self, cuda_device):
-        flat = torch.from_numpy(np.random.default_rng(30).random(3 * 7 * 64 + 1, np.float32))
-        x = flat.to(cuda_device)[1:].view(3, 7, 64)
+        x = shifted(torch.from_numpy(np.random.default_rng(30).random((3, 7, 64), np.float32))
+                    .to(cuda_device))
         assert x.is_contiguous() and x.data_ptr() % 16 == 4
         for mode in K.STRIDE2_MODES:
             assert_bitwise(K.stride2(x, mode), K.stride2_plain(x, mode))
+
+
+@pytest.mark.gpu
+class TestResidualGroupsAndStripsOnCard:
+    """Kernels 4 and 5 (residual.cu): band groups of 1, 5 and 13 bands (5 is
+    no multiple of 4, and the launcher splits C into uneven groups), its
+    16-byte strips (W = 2048) and its per-cell path (W = 1373, 1374, and an
+    operand at an address 4 mod 16), on masks with no unknown cell, lone
+    unknown cells, unknown cells only in a tile's ring, and 60 %."""
+
+    @staticmethod
+    def _inputs(device, shape, um, invm_dtype, seed=32):
+        rng = np.random.default_rng(seed)
+        invm = K.invm_for_kernel(torch.from_numpy(um), torch.from_numpy(neighbor_degree(um.shape)))
+        img = np.round(rng.random(shape) * 1e4).astype(np.float32)
+        img[:, ::7, ::5] = -0.0
+        x_hi = (rng.random(shape) * 9e3).astype(np.float32) * um
+        x_lo = (rng.standard_normal(shape) * 1e-4).astype(np.float32) * um
+        ts = [torch.from_numpy(a).to(device) for a in (img, x_hi, x_lo)]
+        return [*ts, invm.to(device=device, dtype=invm_dtype)]
+
+    @staticmethod
+    def _both_bitwise(img, x_hi, x_lo, invm):
+        for g, w in zip(K.residual_entry(img, invm), K.residual_entry_plain(img, invm)):
+            assert_bitwise(g, w)
+        assert_bitwise(K.residual_pair(img, x_hi, x_lo, invm),
+                       K.residual_pair_plain(img, x_hi, x_lo, invm))
+
+    @pytest.mark.parametrize("invm_dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("width", [1373, 1374, 2048])
+    @pytest.mark.parametrize("bands", [1, 5, 13])
+    @pytest.mark.parametrize("kind", ["corner", "ring48", "ring112", "none", "dense"])
+    def test_residual_kernels_bitwise(self, cuda_device, kind, bands, width, invm_dtype):
+        um = edge_mask(241, width, kind, seed=33)
+        self._both_bitwise(*self._inputs(cuda_device, (bands, 241, width), um, invm_dtype))
+
+    @pytest.mark.parametrize("invm_dtype", [torch.float32, torch.bfloat16])
+    def test_one_group_of_thirteen_bands_bitwise(self, cuda_device, invm_dtype):
+        """13x2048^2 on bench.py's mask: one group holds all 13 bands."""
+        um = make_mask(2048, 2048)
+        self._both_bitwise(*self._inputs(cuda_device, (13, 2048, 2048), um, invm_dtype))
+
+    @pytest.mark.parametrize("operand", [0, 1, 2, 3])
+    def test_unaligned_operand_bitwise(self, cuda_device, operand):
+        """img, x_hi, x_lo or invm at an address 4 mod 16 bytes: the per-cell
+        path at a width that would take the 16-byte one."""
+        ops = self._inputs(cuda_device, (5, 97, 2048), random_mask(97, 2048, 34), torch.float32)
+        ops[operand] = shifted(ops[operand])
+        assert ops[operand].is_contiguous() and ops[operand].data_ptr() % 16 == 4
+        K.reset_launch_counts()
+        self._both_bitwise(*ops)
+        assert K.launch_counts["residual_entry"] == K.launch_counts["residual_pair"] == 1
 
 
 @pytest.mark.gpu

@@ -1,13 +1,16 @@
 """The edges that the port's redesigned kernels rely on, held on the CPU
 against the JAX package: jacobi.cu skips every tile whose interior has no
 unknown cell and writes the outputs the plain version gives known cells
-(the sign of each zero included); stride.cu takes a 16-byte path where the
-width and the address allow it and a scalar one elsewhere.
+(the sign of each zero included); residual.cu stores +0 on every strip of 4
+cells without an unknown cell and reads the neighbours' values only for
+unknown cells; stride.cu and residual.cu take a 16-byte path where the
+width and the addresses allow it and a per-cell one elsewhere.
 
 The port's plain versions (which the CPU runs, and against which the
 kernels are held bit for bit on the card by tests/test_torch_gpu.py) are
 compared with the JAX package's XLA route of multigrid._smooth /
-_smooth_residual within 5e-6, and with numpy slicing exactly."""
+_smooth_residual within 5e-6, with its laplace-mode residual cascade within
+2 ulp, and with numpy slicing exactly."""
 
 import numpy as np
 import pytest
@@ -15,10 +18,11 @@ import torch
 
 import jax.numpy as jnp
 
+from jax_parity import cascade_residual
 from satellite_approximation_tpu.models import multigrid as JM
-from satellite_approximation_tpu.models.cg import neighbor_degree
+from satellite_approximation_tpu.models.cg import neighbor_degree, shift_sum
 from satellite_approximation_tpu_torch.ops import stencil_kernels as K
-from torch_parity import edge_mask, np32
+from torch_parity import assert_within_ulps, edge_mask, np32
 
 PRE = JM._smoother_omegas(JM._PRE_SMOOTH)
 POST = tuple(reversed(JM._smoother_omegas(JM._POST_SMOOTH)))
@@ -135,6 +139,51 @@ class TestSmoothersAtTheTileSkipEdges:
         assert np.array_equal(_bits(gu), u.view(np.int32)) and (_bits(gr) == 0).all()
         cu = K.jacobi_corr(ut, bt, inv, torch.from_numpy(e_c), POST, False)
         assert np.array_equal(_bits(cu), (u + np.float32(0.0)).view(np.int32))
+
+
+class TestResidualCascadeAtTheStripEdges:
+    """Kernels 4 and 5: no unknown cell, lone unknown cells, unknown cells
+    only in a tile's ring, and 60 %, at ragged widths, with f32 and bf16
+    invm and zeros of both signs in the image (and in x_lo on known cells)."""
+
+    @staticmethod
+    def _inputs(shape, kind, seed=31):
+        c, h, w = shape
+        rng = np.random.default_rng(seed)
+        um = edge_mask(h, w, kind, seed=seed)
+        img = np.round(rng.random(shape) * 1e4).astype(np.float32)
+        img[:, ::7, ::5] = -0.0
+        img[:, 3::11, 2::9] = 0.0
+        x_hi = (rng.random(shape) * 9e3).astype(np.float32) * um
+        x_lo = (rng.standard_normal(shape) * 1e-4).astype(np.float32) * um  # -0.0 where negative
+        return img, x_hi, x_lo, um, neighbor_degree((h, w))
+
+    @pytest.mark.parametrize("invm_dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("shape", SHAPES)
+    @pytest.mark.parametrize("kind", KINDS)
+    def test_entry_matches_jax_cascade(self, shape, kind, invm_dtype):
+        img, _, _, um, dg = self._inputs(shape, kind)
+        jimg, jum = jnp.asarray(img), jnp.asarray(um)
+        umf = jum.astype(jnp.float32)
+        x_hi = jimg * umf
+        want_r = cascade_residual(jimg, x_hi, jnp.zeros_like(x_hi), jum, jnp.asarray(dg))
+        want_b = shift_sum(jimg * (1.0 - umf)) * umf
+        r, b = K.residual_entry(torch.from_numpy(img), _invm(um, dg).to(invm_dtype))
+        assert_within_ulps(r, want_r)
+        assert_within_ulps(b, want_b)
+        # known cells: r and b are +0
+        assert (_bits(r)[:, ~um] == 0).all() and (_bits(b)[:, ~um] == 0).all()
+
+    @pytest.mark.parametrize("invm_dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("shape", SHAPES)
+    @pytest.mark.parametrize("kind", KINDS)
+    def test_pair_matches_jax_cascade(self, shape, kind, invm_dtype):
+        img, x_hi, x_lo, um, dg = self._inputs(shape, kind)
+        want = cascade_residual(*(jnp.asarray(x) for x in (img, x_hi, x_lo, um, dg)))
+        r = K.residual_pair(*(torch.from_numpy(x) for x in (img, x_hi, x_lo)),
+                            _invm(um, dg).to(invm_dtype))
+        assert_within_ulps(r, want)
+        assert (_bits(r)[:, ~um] == 0).all()
 
 
 class TestStride2Widths:

@@ -10,7 +10,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from satellite_approximation_tpu.models import fill as JF
+from jax_parity import cascade_residual as _jax_cascade_residual
 from satellite_approximation_tpu.models import multigrid as JM
 from satellite_approximation_tpu.models.cg import masked_laplacian as j_masked_laplacian
 from satellite_approximation_tpu.models.cg import neighbor_degree, shift_sum as j_shift_sum
@@ -149,17 +149,6 @@ class TestJacobiBf16Plain:
         u0 = jnp.asarray(np32(u16)) + jnp.where(inv0 > 0, corr, 0.0)
         for g, w in zip(got, self._oracle(u0, b16, inv16, POST, True)):
             self._close(g, w)
-
-
-def _jax_cascade_residual(img, x_hi, x_lo, um, dg):
-    """fill._fused_refine_solve's laplace-mode residual (the XLA cascade)."""
-    umf = um.astype(jnp.float32)
-    k = (4.0 - dg.astype(jnp.float32)) * umf
-    y_hi = img * (1.0 - umf) + x_hi
-    s, c = JF._cascade(list(JF._shift_taps(y_hi)) + [-4.0 * x_hi, k * x_hi])
-    l1, l2, l3, l4 = JF._shift_taps(x_lo)
-    lo = l1 + l2 + l3 + l4 - 4.0 * x_lo + k * x_lo
-    return (s + (c + lo)) * umf
 
 
 class TestResidualPlain:

@@ -109,6 +109,15 @@ def edge_mask(h, w, kind, seed=0):
     return m
 
 
+def shifted(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` one element past an aligned allocation (an
+    f32 tensor then starts at an address 4 mod 16 bytes)."""
+    flat = t.new_empty(t.numel() + 1)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def np32(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().float().numpy()
