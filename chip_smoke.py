@@ -20,7 +20,10 @@ Phases (each raises on failure, so the run exits non-zero):
    f32, in all four modes beside torch's own call, and at widths 1, 3, 7, 9,
    33 and on an x whose address is 4 mod 16 bytes; the residual kernels also
    with 1 and 5 bands at widths 2048 and 1373, and with each operand at an
-   address 4 mod 16 bytes) — bit-equal required;
+   address 4 mod 16 bytes; the separate-operand smoother also with 1, 5 and
+   13 bands at widths 2048 and 1373, deg in f32 and bf16, each operand at 4
+   mod 16 bytes, and on windows one condition short of static) — bit-equal
+   required;
    median times of both; each kernel's bound at the main shape, for the
    dense count and for what the bench mask needs, and torch's time to
    write the residual kernels' outputs alone (zero_()); the general smoother
@@ -42,8 +45,9 @@ Phases (each raises on failure, so the run exits non-zero):
    current route and one where the half-residual kernel feeds the
    restrict's column pass (bit-equal to it);
 7. benchmark paths: ``benchmarks/x_kernel_v2.py``'s comparison of the
-   separate-operand smoother with the general one (4096^2, 6 sweeps), and
-   ``benchmarks/x_stride_probe.py``'s five idioms with its own checks.
+   separate-operand smoother with the general one (4096^2, 6 sweeps; the
+   former beside its bound), and ``benchmarks/x_stride_probe.py``'s five
+   idioms with its own checks.
 
 Each path that a kernel's launch count is read from (phases 4, 6 and 7)
 runs with every count set to 0 just before it.
@@ -57,11 +61,13 @@ e.g. the parent commit unpacked with ``git archive``) with this one's on
 one card, in turns parent, change, change, parent: phases 1 and 2, then
 kernels 1-7 at 13x2048x2048 f32 on the bench mask and the 60 % mask (each
 beside the bound that mask needs), kernel 8 in its four modes beside
-torch's call, ``multigrid.solve`` on the bench system, kernels 4 and 5 at
-the 10980^2 band's shape and one warm 10980^2 band. The two libraries
-share this tree's Python and C interface; the kernels of both must be
-bit-equal to their plain versions. It ends with one ``{"against": ...}``
-line.
+torch's call, kernel 7 on a mask without an unknown cell and at phase 7's
+4096^2 system with and without the residual, ``multigrid.solve`` on the
+bench system, kernels 4 and 5 at the 10980^2 band's shape and one warm
+10980^2 band. The two libraries share this tree's Python and C interface,
+but for kernel 7, which each tree's own wrapper calls; the kernels of both
+must be bit-equal to their plain versions. It ends with one
+``{"against": ...}`` line.
 """
 
 from __future__ import annotations
@@ -349,9 +355,9 @@ def kernel_work(torch, um, c, sweeps):
     e_c in those that hold the coarse parent of an unknown cell; u in full
     where known cells are copied; every output in full. Kernel 7 masks by
     multiplies, so the sign of each output zero depends on every b and u:
-    its two counts agree, as kernel 8's, which reads no mask. The flops
-    count ~10 a sweep and ~8 for the residual on each cell that computes,
-    ~40 for a residual cascade."""
+    its two counts agree (``v2_work``), as kernel 8's, which reads no mask.
+    The flops count ~10 a sweep and ~8 for the residual on each cell that
+    computes, ~40 for a residual cascade."""
     import torch.nn.functional as F
 
     h, w = um.shape
@@ -367,7 +373,7 @@ def kernel_work(torch, um, c, sweeps):
     n_unk = c * int(um.sum())
     jac = n_unk * (10 * sweeps + 8)
     res = n_unk * 40
-    v2 = 2 * ras + 2 * plane + 2 * ras
+    v2 = v2_work(c, h, w, sweeps, True)
     both = stride2_bytes(STRIDE2_TIMED, (c, h, w))
     return {
         "jacobi_zero": (ras + plane + 2 * ras, unk + plane + 2 * ras, jac),
@@ -376,9 +382,32 @@ def kernel_work(torch, um, c, sweeps):
         "residual_entry": (ras + plane + 2 * ras, nbr + plane + 2 * ras, res),
         "residual_pair": (3 * ras + plane + ras, 2 * nbr + unk + plane + ras, res),
         "jacobi_zero_half": (ras + plane + ras + half, unk + plane + ras + half, jac),
-        "jacobi_v2": (v2, v2, c * h * w * (10 * sweeps + 8)),
+        "jacobi_v2": v2,
         "stride2": (both, both, 0),
     }
+
+
+def v2_work(c, h, w, sweeps, emit, deg_bytes=4):
+    """(dense bytes, bytes any mask needs, flops) of kernel 7 at (c, h, w)
+    f32, at the bytes its caller hands it: u and b, the bool mask (one byte
+    a cell) and deg (``deg_bytes`` a cell) once, u and, with ``emit``, r."""
+    ras = c * h * w * 4
+    nbytes = 2 * ras + h * w * (1 + deg_bytes) + (2 if emit else 1) * ras
+    return nbytes, nbytes, c * h * w * (10 * sweeps + (8 if emit else 0))
+
+
+def known_windows(torch, um, tile=48, ring=8):
+    """Share of kernel 7's windows (each ``tile``-square tile with its
+    ``ring``) that hold no unknown cell of the (H, W) mask ``um``: those
+    stream in jacobi_v2.cu."""
+    import torch.nn.functional as F
+
+    h, w = um.shape
+    ty, tx = -(-h // tile), -(-w // tile)
+    pad = (ring, tx * tile + ring - w, ring, ty * tile + ring - h)
+    m = F.pad(um.float()[None, None], pad)
+    win = F.max_pool2d(m, kernel_size=tile + 2 * ring, stride=tile)
+    return float((win == 0).float().mean())
 
 
 def stride2_bytes(mode, shape):
@@ -419,10 +448,11 @@ def check_stride2_edges(torch, K, dev):
 
 
 def _shifted(t):
-    """A contiguous copy of ``t`` one element past an aligned allocation (an
-    f32 tensor then starts at an address 4 mod 16 bytes)."""
-    flat = t.new_empty(t.numel() + 1)
-    out = flat[1:].view(t.shape)
+    """A contiguous copy of ``t`` 4 bytes past an aligned allocation (so at
+    an address 4 mod 16 bytes)."""
+    k = 4 // t.element_size()
+    flat = t.new_empty(t.numel() + k)
+    out = flat[k:].view(t.shape)
     out.copy_(t)
     if out.data_ptr() % 16 != 4:
         raise AssertionError(f"expected an address 4 mod 16, got {out.data_ptr() % 16}")
@@ -468,6 +498,73 @@ def check_residual_edges(torch, K, dev):
         "2048 and 1373 (f32 and bf16 invm), and with img, x_hi, x_lo or invm at 4 mod 16 bytes")
 
 
+def v2_edge_inputs(torch, c, w, dev, gen, kind="static"):
+    """(u, b, umask, deg) of kernel 7 at (c, 241, w) f32: bench.py's mask
+    statistics (most 48x48 tiles' windows entirely known), cleared around
+    the window of tile (1, 1) (image rows and columns 40 .. 103), and there
+    ``kind``: ``static`` nothing more, else one condition short of a static
+    window on a known cell of band 0 (``neg0``, ``inf``, ``nan``, ``bmax``,
+    ``umax``), or an unknown cell at one corner of the window's outer ring
+    or the ring inside it (``ring0-<corner>``, ``ring1-<corner>``)."""
+    from satellite_approximation_tpu_torch.models.cg import neighbor_degree_tensor
+
+    h = 241
+    um = torch.from_numpy(make_mask(h, w)).to(dev)
+    um[30:114, 30:114] = False
+    u = torch.rand((c, h, w), generator=gen, device=dev) * 2 - 1
+    b = torch.rand((c, h, w), generator=gen, device=dev) * 2 - 1
+    special = {"neg0": ("u", -0.0), "inf": ("u", math.inf), "nan": ("u", math.nan),
+               "bmax": ("b", -3.4e38), "umax": ("u", 3.4e38)}
+    if kind in special:
+        name, value = special[kind]
+        (u if name == "u" else b)[0, 70, 70] = value
+        if kind == "bmax":
+            u[0, 70, 70] = 1e38  # b - A u overflows
+    elif kind.startswith("ring"):
+        ring, corner = int(kind[4]), kind.split("-")[1]
+        lo, hi = 40 + ring, 103 - ring
+        um[lo if corner[0] == "t" else hi, lo if corner[1] == "l" else hi] = True
+    elif kind != "static":
+        raise ValueError(kind)
+    return u, b, um, neighbor_degree_tensor(h, w, dev)
+
+
+V2_EDGE_KINDS = ("neg0", "inf", "nan", "bmax", "umax",
+                 *(f"ring{r}-{c}" for r in (0, 1) for c in ("tl", "tr", "bl", "br")))
+
+
+def check_v2_edges(torch, K, dev):
+    """Kernel 7 bit-equal with 1, 5 and 13 bands (band groups of every
+    size), at widths 2048 and 1373, in f32 and bf16 with deg in f32 and in
+    the storage dtype, with each operand at an address 4 mod 16 bytes, and
+    on windows one condition short of static (``v2_edge_inputs``)."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+
+    def both(u, b, um, deg, dtype, deg_dtype):
+        u, b, deg = u.to(dtype), b.to(dtype), deg.to(deg_dtype)
+        for sweeps, emit in ((8, False), (7, True)):
+            _bitwise(torch, K.jacobi_v2(u, b, um, deg, sweeps, 0.8, emit),
+                     K.jacobi_v2_plain(u, b, um, deg, sweeps, 0.8, emit))
+
+    dtypes = ((torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+              (torch.bfloat16, torch.bfloat16))
+    for c in (1, 5, 13):
+        for w in (2048, 1373):
+            ops = v2_edge_inputs(torch, c, w, dev, gen)
+            for dtype, deg_dtype in dtypes:
+                both(*ops, dtype, deg_dtype)
+    ops = v2_edge_inputs(torch, 5, 2048, dev, gen)
+    for k in range(len(ops)):
+        both(*(_shifted(t) if n == k else t for n, t in enumerate(ops)), *dtypes[0])
+    for kind in V2_EDGE_KINDS:
+        for w in (2048, 1373):  # the 16-byte streaming path and the per-cell one
+            for dtype, deg_dtype in dtypes[:2]:
+                both(*v2_edge_inputs(torch, 2, w, dev, gen, kind), dtype, deg_dtype)
+    log("[3 kernels] jacobi_v2 bit-equal with 1, 5 and 13 bands at widths 2048 and 1373 (f32, "
+        "bf16; deg f32 and bf16), with u, b, mask or deg at 4 mod 16 bytes, and on windows one "
+        f"condition short of static ({', '.join(V2_EDGE_KINDS)})")
+
+
 def kernel_inputs(torch, K, mg, tag, shape, dtype, dev):
     """The kernels' inputs at ``shape`` on the bench mask (``tag`` "main") or
     on a 60 % random mask, drawn from a generator seeded by the shape, and
@@ -495,8 +592,9 @@ def kernel_inputs(torch, K, mg, tag, shape, dtype, dev):
     img, x_hi, x_lo, _ = residual_inputs(torch, K, um, c, dtype, g)
 
     def pair(name, *args):
-        kern, plain = getattr(K, name), getattr(K, f"{name}_plain")
-        return (lambda: kern(*args)), (lambda: plain(*args))
+        # the wrapper is looked up at each call, so kernels_from can swap it
+        plain = getattr(K, f"{name}_plain")
+        return (lambda: getattr(K, name)(*args)), (lambda: plain(*args))
 
     calls = {
         "jacobi_zero": pair("jacobi_zero", b, invm, pre, True),
@@ -552,8 +650,9 @@ def phase_kernels(torch, K, mg, dev):
         bounds = kernel_work(torch, um, shape[0], len(pre)) if tag in ("main", "dense") else {}
         if bounds:
             need = ", ".join(f"{k} {v[1] / 1e9:.3f}" for k, v in bounds.items())
-            log(f"[3 kernels] {tag}: {float(um.float().mean()) * 100:.2f}% unknown; GB this mask "
-                f"needs: {need}")
+            log(f"[3 kernels] {tag}: {float(um.float().mean()) * 100:.2f}% unknown, "
+                f"{known_windows(torch, um):.1%} of kernel 7's windows without an unknown cell; "
+                f"GB this mask needs: {need}")
         for name, (kern, plain) in x.bare.items():
             err = _bitwise(torch, kern(), plain())
             results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
@@ -600,6 +699,7 @@ def phase_kernels(torch, K, mg, dev):
                label=mode)
     check_stride2_edges(torch, K, dev)
     check_residual_edges(torch, K, dev)
+    check_v2_edges(torch, K, dev)
     return results
 
 
@@ -871,32 +971,43 @@ def phase_general_iterate(torch, K, dev, card, system, tile):
     return {k: counts[k] for k in ("jacobi", "jacobi_zero_half")}
 
 
+V2_PROBE_SWEEPS = 6
+
+
+def v2_probe_inputs(torch, dev, n=4096):
+    """``benchmarks/x_kernel_v2.py``'s system: (u, b, umask, deg) at 1 x n x
+    n, f32 from seed 0, 70 % of the mask unknown, deg 4."""
+    rng = np.random.default_rng(0)
+    u = torch.from_numpy(rng.random((1, n, n), dtype=np.float32)).to(dev)
+    b = torch.from_numpy(rng.random((1, n, n), dtype=np.float32)).to(dev)
+    m = torch.from_numpy(rng.random((n, n)) > 0.3).to(dev)
+    return u, b, m, torch.full((n, n), 4.0, device=dev)
+
+
 def phase_benchmark_paths(torch, K, dev, card):
     """The two benchmark scripts whose Pallas kernels the port carries."""
     from satellite_approximation_tpu_torch import ops
 
     # benchmarks/x_kernel_v2.py main(): v1 (kernel 3) against v2 (kernel 7)
-    n, sweeps = 4096, 6
-    rng = np.random.default_rng(0)
-    u = torch.from_numpy(rng.random((1, n, n), dtype=np.float32)).to(dev)
-    b = torch.from_numpy(rng.random((1, n, n), dtype=np.float32)).to(dev)
-    m = torch.from_numpy(rng.random((n, n)) > 0.3).to(dev)
-    deg = torch.full((n, n), 4.0, device=dev)
+    u, b, m, deg = v2_probe_inputs(torch, dev)
+    n = m.shape[-1]
     K.reset_launch_counts()
     for emit in (False, True):
         def v1(emit=emit):
-            return ops.fused_jacobi(u, b, m, deg, sweeps=sweeps, emit_residual=emit)
+            return ops.fused_jacobi(u, b, m, deg, sweeps=V2_PROBE_SWEEPS, emit_residual=emit)
 
         def v2(emit=emit):
-            return K.jacobi_v2(u, b, m, deg, sweeps=sweeps, emit_residual=emit)
+            return K.jacobi_v2(u, b, m, deg, sweeps=V2_PROBE_SWEEPS, emit_residual=emit)
 
         diff, signs = _value_diff(torch, v2(), v1())
-        log(f"[7 bench] x_kernel_v2 1x{n}x{n} sweeps={sweeps} emit_residual={emit}: "
+        log(f"[7 bench] x_kernel_v2 1x{n}x{n} sweeps={V2_PROBE_SWEEPS} emit_residual={emit}: "
             f"max |v1 - v2| = {diff}, {signs} zeros of opposite sign")
         if diff != 0.0:
             raise AssertionError("v2 mismatch")
-        log(f"[7 bench]   v1 {_median_ms(torch, v1):.4f} ms  v2 {_median_ms(torch, v2):.4f} ms "
-            f"[{card}]")
+        ms = _median_ms(torch, v2)
+        bound, by = bound_ms(*v2_work(1, n, n, V2_PROBE_SWEEPS, emit)[1:])
+        log(f"[7 bench]   v1 {_median_ms(torch, v1):.4f} ms  v2 {ms:.4f} ms; v2's bound "
+            f"{bound:.4f} ms ({bound / ms:.0%}, {by}) [{card}]")
     counts = {"jacobi_v2": K.launch_counts["jacobi_v2"]}
     del u, b, m, deg
 
@@ -936,24 +1047,29 @@ def load_kernels_of(tree: Path):
 
 
 @contextlib.contextmanager
-def kernels_from(K, lib):
-    """Inside the block, K's wrappers launch the kernels of the loaded
-    library ``lib``."""
-    own = K._library
-    K._library = lambda: lib
+def kernels_from(K, mod):
+    """Inside the block, K's wrappers launch the kernels of the checkout
+    whose ``stencil_kernels`` module is ``mod``: every wrapper through that
+    checkout's library, and ``jacobi_v2`` through that checkout's own wrapper
+    (kernel 7's C interface follows the operands its wrapper hands it)."""
+    own = K._library, K.jacobi_v2
+    K._library, K.jacobi_v2 = mod._library, mod.jacobi_v2
     try:
         yield
     finally:
-        K._library = own
+        K._library, K.jacobi_v2 = own
 
 
 def phase_against(torch, K, mg, dev, card, tree: Path):
     """The compiled kernels of the checkout at ``tree`` ("parent") against
-    this one's ("change"), under this tree's Python: each measurement runs
-    with one library, then the other, in turns parent, change, change,
-    parent (kernel 8 also torch's own call in turns between them)."""
+    this one's ("change"), under this tree's Python (but kernel 7's wrapper,
+    see ``kernels_from``): each measurement runs with one library, then the
+    other, in turns parent, change, change, parent (kernel 8 also torch's own
+    call in turns between them)."""
     t0 = time.perf_counter()
-    libs = {"parent": load_kernels_of(tree)._library(), "change": K._library()}
+    libs = {"parent": load_kernels_of(tree), "change": K}
+    for mod in libs.values():
+        mod._library()  # builds that checkout's csrc/
     log(f"[ab] kernels of {tree} built in {time.perf_counter() - t0:.3f} s")
     order = ("parent", "change", "change", "parent")
     out = {"card": card, "order": order, "kernels": {}, "stride2": {}}
@@ -1005,6 +1121,25 @@ def phase_against(torch, K, mg, dev, card, tree: Path):
     for tag in ("main", "dense"):
         time_kernels(tag)
         torch.cuda.empty_cache()
+
+    # kernel 7 where every window streams (no unknown cell), and at the
+    # phase-7 probe, without and with the residual
+    x = kernel_inputs(torch, K, mg, "main", (BANDS, H, W), torch.float32, dev)
+    args = (x.u, x.b, torch.zeros_like(x.um), x.deg, len(x.v2), x.v2[0], True)
+    calls = {"jacobi_v2": (lambda: K.jacobi_v2(*args), lambda: K.jacobi_v2_plain(*args))}
+    time_calls(calls, tuple(calls), "known", (BANDS, H, W),
+               {"jacobi_v2": v2_work(BANDS, H, W, len(x.v2), True)})
+    del x, args, calls
+    u, b, m, deg = v2_probe_inputs(torch, dev)
+    n = m.shape[-1]
+    for emit in (False, True):
+        args = (u, b, m, deg, V2_PROBE_SWEEPS, 0.8, emit)
+        calls = {"jacobi_v2": (lambda args=args: K.jacobi_v2(*args),  # looked up at each call
+                               lambda args=args: K.jacobi_v2_plain(*args))}
+        time_calls(calls, tuple(calls), "probe+r" if emit else "probe", (1, n, n),
+                   {"jacobi_v2": v2_work(1, n, n, V2_PROBE_SWEEPS, emit)})
+    del u, b, m, deg, calls
+    torch.cuda.empty_cache()
 
     umask, imgs = bench_images()
     sdeg, sb = bench_rhs(umask, imgs)

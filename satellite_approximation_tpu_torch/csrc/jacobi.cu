@@ -305,27 +305,11 @@ __global__ void __launch_bounds__(THREADS, 2) jacobi_kernel(const __grid_constan
   }
 }
 
-// bands per block: as many (up to MAX_BANDS_PER_BLOCK) as still leave 16
-// blocks for each SM, so the card stays full on the small levels
-cudaError_t bands_per_block(int C, int tiles, int* per) {
-  static int sms = 0;  // the same for every card of a host
-  if (sms == 0) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-  }
-  for (*per = MAX_BANDS_PER_BLOCK; *per > 1; --*per) {
-    if ((long long)tiles * ((C + *per - 1) / *per) >= 16LL * sms) break;
-  }
-  return cudaSuccess;
-}
-
 template <typename T, int START, int EMIT>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   const int tx = (a.W + TILE - 1) / TILE, ty = (a.H + TILE - 1) / TILE;
   int per = 1;
-  const cudaError_t err = bands_per_block(a.C, tx * ty, &per);
+  const cudaError_t err = stencil::bands_per_block(a.C, tx * ty, MAX_BANDS_PER_BLOCK, &per);
   if (err != cudaSuccess) return err;
   const dim3 grid(tx, ty, (a.C + per - 1) / per);
   jacobi_kernel<T, START, EMIT><<<grid, THREADS, 0, stream>>>(a);

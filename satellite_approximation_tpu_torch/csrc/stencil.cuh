@@ -1,17 +1,13 @@
 // Shared pieces of the windowed smoother kernels (jacobi.cu, jacobi_v2.cu):
-// storage conversions, the halo ring and the shared-memory window geometry.
+// storage conversions, the halo ring, the launch grid's limits and the
+// choice of bands per block.
 //
-// A block owns one (band, tile) and stages it with a ring of R cells around
-// it. Values in the window's outer ring are wrong (their neighbours lie
-// outside the window), and the error moves inwards one cell per sweep, so
-// the interior (ring >= R) stays exact as long as the general sweeps (+1
-// when a residual is emitted) are at most R.
-//
-// jacobi.cu uses R, MAX_SWEEPS, the conversions and grid_fits, and has its
-// own geometry (a 64x64 window held as register strips). TILE, WIN, CELLS,
-// THREADS and ring_of below are the geometry of jacobi_v2.cu alone: one
-// block of 256 threads per 48x48 tile, the whole 64x64 window in shared
-// memory, sweep t computed only where ring_of() >= t.
+// A block owns one tile and stages it with a ring of R cells around it.
+// Values in the window's outer ring are wrong (their neighbours lie outside
+// the window), and the error moves inwards one cell per sweep, so the
+// interior (ring >= R) stays exact as long as the general sweeps (+1 when a
+// residual is emitted) are at most R. Each kernel has its own window
+// geometry.
 
 #pragma once
 
@@ -22,15 +18,6 @@ namespace stencil {
 
 constexpr int R = 8;                   // halo ring
 constexpr int MAX_SWEEPS = 8;
-
-// jacobi_v2.cu's window
-constexpr int TILE = 48;               // interior tile edge
-constexpr int WIN = TILE + 2 * R;      // window edge (64)
-constexpr int CELLS = WIN * WIN;       // window cells
-constexpr int THREADS = 256;
-
-// a row pair (2i, 2i + 1) of the image never straddles two tiles
-static_assert(TILE % 2 == 0, "TILE must be even");
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -50,13 +37,25 @@ __device__ __forceinline__ float round_to(float x) {
   return to_f32(from_f32<T>(x));
 }
 
-__device__ __forceinline__ int ring_of(int wi, int wj) {
-  return min(min(wi, wj), min(WIN - 1 - wi, WIN - 1 - wj));
+// the launch grid (tiles across, tiles down, bands) fits CUDA's limits
+inline bool grid_fits(int C, int H, int W, int tile) {
+  return C >= 1 && H >= 1 && W >= 1 && C <= 65535 && (H + tile - 1) / tile <= 65535;
 }
 
-// the launch grid (tiles across, tiles down, bands) fits CUDA's limits
-inline bool grid_fits(int C, int H, int W, int tile = TILE) {
-  return C >= 1 && H >= 1 && W >= 1 && C <= 65535 && (H + tile - 1) / tile <= 65535;
+// bands per block: as many (up to max_per) as still leave 16 blocks for each
+// SM, so the card stays full on small grids
+inline cudaError_t bands_per_block(int C, int tiles, int max_per, int* per) {
+  static int sms = 0;  // the same for every card of a host
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  for (*per = max_per; *per > 1; --*per) {
+    if ((long long)tiles * ((C + *per - 1) / *per) >= 16LL * sms) break;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace stencil

@@ -24,7 +24,8 @@ Shared contract of the package's kernels (as the TPU kernels'): one (H, W)
 serves every band; the stencil degree is recovered as round(1/invm), exact
 for bf16 storage too; masking is by selects, never multiplies; arithmetic is
 f32, storage f32 or bf16. ``jacobi_v2`` keeps its benchmark's own contract:
-separate mask and degree operands, masking by multiplies.
+separate mask and degree operands, masking by multiplies; its kernel reads
+the bool mask and the degree as the caller gives them.
 
 Each wrapper checks its operands, then runs the plain version when they lie
 on the CPU and launches the CUDA kernel when they lie on a CUDA device. There
@@ -141,7 +142,7 @@ def _library() -> ctypes.CDLL:
     p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     lib.sat_jacobi.argtypes = [i, i, i, p, p, p, p, p, p, i, i, i, i, i, i, p, p]
     lib.sat_jacobi.restype = i
-    lib.sat_jacobi_v2.argtypes = [i, i, p, p, p, p, p, p, i, i, i, i, f, p]
+    lib.sat_jacobi_v2.argtypes = [i, i, i, p, p, p, p, p, p, i, i, i, i, f, p]
     lib.sat_jacobi_v2.restype = i
     lib.sat_residual.argtypes = [i, i, p, p, p, p, p, p, i, i, i, p]
     lib.sat_residual.restype = i
@@ -529,13 +530,12 @@ def jacobi_v2(u, b, umask, deg, sweeps: int = 8, omega: float = 0.8,
     _check_omegas(name, (float(omega),) * sweeps, sweeps, emit_residual)
     if not _on_cuda(name, (u, b, umask, deg)):
         return jacobi_v2_plain(u, b, umask, deg, sweeps, omega, emit_residual)
-    m = umask.to(u.dtype)
-    d = deg.to(u.dtype)
+    # the kernel reads the bool mask as bytes and rounds deg to u's dtype itself
     u_out = torch.empty_like(u)
     r = torch.empty_like(u) if emit_residual else None
     rc = _library().sat_jacobi_v2(
-        _DTYPE_CODE[u.dtype], int(emit_residual), _ptr(u), _ptr(b), _ptr(m), _ptr(d),
-        _ptr(u_out), _ptr(r), c, h, w, sweeps, float(omega), _stream(),
+        _DTYPE_CODE[u.dtype], _DTYPE_CODE[deg.dtype], int(emit_residual), _ptr(u), _ptr(b),
+        _ptr(umask), _ptr(deg), _ptr(u_out), _ptr(r), c, h, w, sweeps, float(omega), _stream(),
     )
     _check_rc(rc, name)
     launch_counts[name] += 1

@@ -21,6 +21,7 @@ from satellite_approximation_tpu_torch.models.cg import neighbor_degree
 from satellite_approximation_tpu_torch.ops import stencil_kernels as K
 from torch_parity import (  # noqa: F401 — cuda_device is a fixture
     CPU,
+    V2_EDGE_KINDS,
     assert_bitwise,
     bench_system,
     cuda_device,
@@ -28,6 +29,7 @@ from torch_parity import (  # noqa: F401 — cuda_device is a fixture
     make_mask,
     random_mask,
     shifted,
+    v2_window_case,
 )
 
 PRE = mg._smoother_omegas(mg._PRE_SMOOTH)
@@ -263,6 +265,61 @@ class TestResidualGroupsAndStripsOnCard:
         K.reset_launch_counts()
         self._both_bitwise(*ops)
         assert K.launch_counts["residual_entry"] == K.launch_counts["residual_pair"] == 1
+
+
+V2_DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+             (torch.bfloat16, torch.bfloat16)]
+V2_DTYPE_IDS = ["f32", "bf16-deg-f32", "bf16"]
+
+
+@pytest.mark.gpu
+class TestJacobiV2OnCard:
+    """Kernel 7 (jacobi_v2.cu): band groups of every size (1, 5 and 13
+    bands), widths 1373, 1374 and 2048, f32 and bf16 storage with deg in f32
+    and in the storage dtype, each operand at an address 4 mod 16 bytes, and
+    windows that are static or one condition short of it."""
+
+    @staticmethod
+    def _operands(device, case, dtype, deg_dtype):
+        u, b, um, deg = case
+        return [torch.from_numpy(u).to(device=device, dtype=dtype),
+                torch.from_numpy(b).to(device=device, dtype=dtype),
+                torch.from_numpy(um).to(device),
+                torch.from_numpy(deg).to(device=device, dtype=deg_dtype)]
+
+    @staticmethod
+    def _both_bitwise(u, b, um, deg):
+        for sweeps, emit in ((8, False), (7, True), (1, True)):
+            got = K.jacobi_v2(u, b, um, deg, sweeps, 0.8, emit)
+            for g, w in _pairs(got, K.jacobi_v2_plain(u, b, um, deg, sweeps, 0.8, emit)):
+                assert_bitwise(g, w)
+
+    @pytest.mark.parametrize("dtypes", V2_DTYPES, ids=V2_DTYPE_IDS)
+    @pytest.mark.parametrize("width", [1373, 1374, 2048])
+    @pytest.mark.parametrize("bands", [1, 5, 13])
+    def test_bands_widths_dtypes_bitwise(self, cuda_device, bands, width, dtypes):
+        case = v2_window_case(bands, width, seed=40)
+        self._both_bitwise(*self._operands(cuda_device, case, *dtypes))
+
+    @pytest.mark.parametrize("dtypes", [V2_DTYPES[0], V2_DTYPES[2]], ids=["f32", "bf16"])
+    @pytest.mark.parametrize("operand", [0, 1, 2, 3])
+    def test_unaligned_operand_bitwise(self, cuda_device, operand, dtypes):
+        """u, b, the mask or deg at an address 4 mod 16 bytes."""
+        ops = self._operands(cuda_device, v2_window_case(5, 2048, seed=41), *dtypes)
+        ops[operand] = shifted(ops[operand])
+        assert ops[operand].is_contiguous() and ops[operand].data_ptr() % 16 == 4
+        K.reset_launch_counts()
+        self._both_bitwise(*ops)
+        assert K.launch_counts["jacobi_v2"] == 3
+
+    @pytest.mark.parametrize("dtypes", V2_DTYPES[:2], ids=V2_DTYPE_IDS[:2])
+    @pytest.mark.parametrize("width", [304, 1373])
+    @pytest.mark.parametrize("kind", ("static",) + V2_EDGE_KINDS)
+    def test_static_window_edges_bitwise(self, cuda_device, kind, width, dtypes):
+        """Width 304 takes the 16-byte streaming path (and its fallback to
+        the sweeps) in f32 and bf16, width 1373 the per-cell path."""
+        case = v2_window_case(2, width, kind, seed=42)
+        self._both_bitwise(*self._operands(cuda_device, case, *dtypes))
 
 
 @pytest.mark.gpu

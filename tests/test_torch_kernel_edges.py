@@ -4,7 +4,9 @@ unknown cell and writes the outputs the plain version gives known cells
 (the sign of each zero included); residual.cu stores +0 on every strip of 4
 cells without an unknown cell and reads the neighbours' values only for
 unknown cells; stride.cu and residual.cu take a 16-byte path where the
-width and the addresses allow it and a per-cell one elsewhere.
+width and the addresses allow it and a per-cell one elsewhere; jacobi_v2.cu
+writes a window's given u and one evaluation of r when its first sweep
+changes nothing, and streams a window without an unknown cell.
 
 The port's plain versions (which the CPU runs, and against which the
 kernels are held bit for bit on the card by tests/test_torch_gpu.py) are
@@ -22,7 +24,7 @@ from jax_parity import cascade_residual
 from satellite_approximation_tpu.models import multigrid as JM
 from satellite_approximation_tpu.models.cg import neighbor_degree, shift_sum
 from satellite_approximation_tpu_torch.ops import stencil_kernels as K
-from torch_parity import assert_within_ulps, edge_mask, np32
+from torch_parity import assert_bitwise, assert_within_ulps, edge_mask, np32
 
 PRE = JM._smoother_omegas(JM._PRE_SMOOTH)
 POST = tuple(reversed(JM._smoother_omegas(JM._POST_SMOOTH)))
@@ -184,6 +186,89 @@ class TestResidualCascadeAtTheStripEdges:
                             _invm(um, dg).to(invm_dtype))
         assert_within_ulps(r, want)
         assert (_bits(r)[:, ~um] == 0).all()
+
+
+V2_SWEEPS, V2_OMEGA = 6, 0.8
+
+
+def _v2_plain(u, b, um, dg, sweeps, emit, dtype=torch.float32):
+    return K.jacobi_v2_plain(torch.from_numpy(u).to(dtype), torch.from_numpy(b).to(dtype),
+                             torch.from_numpy(um), torch.from_numpy(dg), sweeps, V2_OMEGA, emit)
+
+
+def _known_system(shape, seed):
+    """Every cell known; u and b standard normal (finite, never -0)."""
+    rng = np.random.default_rng(seed)
+    u, b = (rng.standard_normal(shape).astype(np.float32) for _ in range(2))
+    return u, b, np.zeros(shape[1:], dtype=bool), neighbor_degree(shape[1:])
+
+
+class TestJacobiV2AtTheStaticWindowEdges:
+    """Kernel 7's plain version, against which jacobi_v2.cu is held bit for
+    bit on the card: against the JAX smoother on masks with no unknown cell,
+    one unknown cell on a tile's interior edge, unknown cells only in a
+    tile's ring, and 60 %; and the facts the kernel's static-window shortcut
+    rests on (a known window is a fixed point unless a u is -0 or a value is
+    not finite)."""
+
+    @pytest.mark.parametrize("emit", [False, True])
+    @pytest.mark.parametrize("shape", SHAPES)
+    @pytest.mark.parametrize("kind", KINDS)
+    def test_plain_matches_jax(self, kind, shape, emit):
+        b, u, _, um, dg = _problem(shape, kind)
+        got = _v2_plain(u, b, um, dg, V2_SWEEPS, emit)
+        smooth = JM._smooth_residual if emit else JM._smooth
+        want = smooth(*(jnp.asarray(x) for x in (u, b, um, dg)), (V2_OMEGA,) * V2_SWEEPS)
+        for g, w in zip(*((got, want) if emit else ((got,), (want,)))):
+            _close(g, w)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_known_window_is_a_fixed_point(self, dtype):
+        """u comes back bit for bit after any number of sweeps, and r is one
+        evaluation of (b - A u) * m on the given u."""
+        u, b, um, dg = _known_system((2, 70, 90), 60)
+        ut, bt = torch.from_numpy(u).to(dtype), torch.from_numpy(b).to(dtype)
+        m, d = torch.zeros(um.shape), torch.from_numpy(dg).to(dtype).float()
+        uf = ut.float()
+        r = ((bt.float() - (d * uf - K._tap_sum(uf * m))) * m).to(dtype)
+        for sweeps in (1, 4, 7):
+            got_u, got_r = _v2_plain(u, b, um, dg, sweeps, True, dtype)
+            assert_bitwise(got_u, ut)
+            assert_bitwise(got_r, r)
+
+    def test_known_negative_zero_turns_positive_where_the_update_is_not_negative(self):
+        """A known -0 becomes +0 where omega * (b - A u) has no sign bit (the
+        update is that value times inv = +0), and stays -0 elsewhere; every
+        other u is unchanged. With b != 0 the sign is b's in every sweep."""
+        u, b, um, dg = _known_system((1, 40, 50), 61)
+        u[:, ::3, ::2] = -0.0
+        neg0 = np.signbit(u) & (u == 0)
+        ut, m, d = torch.from_numpy(u), torch.zeros(um.shape), torch.from_numpy(dg)
+        x = (V2_OMEGA * (torch.from_numpy(b) - (d * ut - K._tap_sum(ut * m)))).numpy()
+        assert (x[neg0] > 0).any() and (x[neg0] < 0).any()
+        got = np32(_v2_plain(u, b, um, dg, 1, False))
+        assert np.array_equal(np.signbit(got[neg0]), np.signbit(x[neg0]))
+        assert (got[neg0] == 0).all()
+        assert np.array_equal(got.view(np.int32)[~neg0], u.view(np.int32)[~neg0])
+        got = np32(_v2_plain(u, b, um, dg, V2_SWEEPS, False))
+        assert np.array_equal(np.signbit(got[neg0]), b[neg0] < 0)
+
+    @pytest.mark.parametrize("value", [np.inf, np.nan])
+    def test_known_non_finite_value_reaches_its_neighbours(self, value):
+        """inf * 0 and NaN * 0 are NaN: after K sweeps u is NaN within K
+        cells (4-neighbour steps) of a known non-finite u, and r within
+        K + 1; everything farther is unchanged."""
+        u, b, um, dg = _known_system((1, 41, 41), 62)
+        u[0, 20, 20] = value
+        yy, xx = np.mgrid[:41, :41]
+        dist = np.abs(yy - 20) + np.abs(xx - 20)
+        for sweeps in (1, 3, 6):
+            got_u, got_r = (np32(t)[0] for t in _v2_plain(u, b, um, dg, sweeps, True))
+            assert np.isnan(got_u[dist <= sweeps]).all()
+            assert np.array_equal(got_u[dist > sweeps].view(np.int32),
+                                  u[0][dist > sweeps].view(np.int32))
+            assert np.isnan(got_r[dist <= sweeps + 1]).all()
+            assert (got_r[dist > sweeps + 1] == 0).all()
 
 
 class TestStride2Widths:

@@ -109,11 +109,50 @@ def edge_mask(h, w, kind, seed=0):
     return m
 
 
+# kernel 7's windows one condition short of static (v2_window_case)
+V2_EDGE_KINDS = ("neg0", "inf", "nan", "bmax", "umax") + tuple(
+    f"ring{r}-{c}" for r in (0, 1) for c in ("tl", "tr", "bl", "br")
+)
+
+
+def v2_window_case(c, w, kind="static", seed=0, h=241):
+    """Kernel 7's inputs (u, b, umask, deg) at (c, h, w) f32: a cloud mask
+    (``make_mask``) cleared around the window of jacobi_v2.cu's tile (1, 1)
+    (image rows and columns 40 .. 103, 48x48 tiles with an 8-cell ring), and
+    there ``kind``: ``static`` nothing more, else one condition short of a
+    static window on a known cell of band 0 (``neg0`` u = -0, ``inf``,
+    ``nan``, ``bmax`` b - A u overflowing, ``umax`` u near the f32 maximum),
+    or one unknown cell at a corner of the window's outer ring or of the ring
+    inside it (``ring0-tl`` .. ``ring1-br``)."""
+    from satellite_approximation_tpu_torch.models.cg import neighbor_degree
+
+    rng = np.random.default_rng(seed)
+    um = make_mask(h, w, seed=seed)
+    um[30:114, 30:114] = False
+    u = (rng.random((c, h, w)) * 2 - 1).astype(np.float32)
+    b = (rng.random((c, h, w)) * 2 - 1).astype(np.float32)
+    special = {"neg0": ("u", -0.0), "inf": ("u", np.inf), "nan": ("u", np.nan),
+               "bmax": ("b", -3.4e38), "umax": ("u", 3.4e38)}
+    if kind in special:
+        name, value = special[kind]
+        (u if name == "u" else b)[0, 70, 70] = value
+        if kind == "bmax":
+            u[0, 70, 70] = 1e38  # b - A u overflows
+    elif kind.startswith("ring"):
+        ring, corner = int(kind[4]), kind.split("-")[1]
+        lo, hi = 40 + ring, 103 - ring
+        um[lo if corner[0] == "t" else hi, lo if corner[1] == "l" else hi] = True
+    elif kind != "static":
+        raise ValueError(kind)
+    return u, b, um, neighbor_degree((h, w))
+
+
 def shifted(t: torch.Tensor) -> torch.Tensor:
-    """A contiguous copy of ``t`` one element past an aligned allocation (an
-    f32 tensor then starts at an address 4 mod 16 bytes)."""
-    flat = t.new_empty(t.numel() + 1)
-    out = flat[1:].view(t.shape)
+    """A contiguous copy of ``t`` 4 bytes past an aligned allocation (so at
+    an address 4 mod 16 bytes)."""
+    k = 4 // t.element_size()
+    flat = t.new_empty(t.numel() + k)
+    out = flat[k:].view(t.shape)
     out.copy_(t)
     return out
 
