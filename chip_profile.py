@@ -10,6 +10,18 @@ wall time (median of 5, CUDA synchronised); the device's idle share is one
 minus the device time over that wall time.
 
     python3 chip_profile.py [--top N]
+    python3 chip_profile.py --detect [N] [--top N]
+
+``--detect`` profiles the detection path instead (no hand-written kernel on
+it), at N x N (4096 by default): one warm ``detect`` of
+``chip_smoke.synthesize(N)`` under backend "auto" (the device stages), and
+the pit fill alone on that scene's NIR, each with its device time, its count
+of device launches and the device's idle share; then the pit fill level by
+level, by rounds over the active tiles and by whole-raster sweeps only: the
+seconds, the sweeps, and the cells swept as a multiple of the level's size;
+then the matching in its forms (the separability check and the vector
+form of the affine, the general sweep alone, the vector form alone) and the
+LS geometry stage with no writer thread beside it.
 
 The last line is one JSON object ``{"profile": {...}}``. Without a CUDA
 device the script prints no result and exits non-zero.
@@ -44,17 +56,18 @@ def kind_of(name: str) -> str:
 
 
 def wall_ms(torch, fn, runs=5):
-    """Median wall ms of one call of ``fn``, the device synchronised."""
+    """Median wall ms of one call of ``fn``, the device synchronised; a
+    ``fn`` that returns a number has timed its own core, in seconds."""
     times = []
     for _ in range(runs):
         t0 = time.perf_counter()
-        fn()
+        own = fn()
         torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
+        times.append((time.perf_counter() - t0 if own is None else own) * 1e3)
     return statistics.median(times)
 
 
-def profile_call(torch, label, fn, reps, card, top):
+def profile_call(torch, label, fn, reps, card, top, wall_runs=5):
     """Profile ``reps`` warm calls of ``fn``: log the device ms per call by
     kind and by kernel, and return the split."""
     from torch.autograd import DeviceType
@@ -62,7 +75,7 @@ def profile_call(torch, label, fn, reps, card, top):
 
     fn()
     torch.cuda.synchronize()
-    wall = wall_ms(torch, fn)
+    wall = wall_ms(torch, fn, wall_runs)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
@@ -79,13 +92,152 @@ def profile_call(torch, label, fn, reps, card, top):
     kinds = {kind: 0.0 for kind, _ in KINDS} | {OTHER: 0.0}
     for name, (ms, _) in per_name.items():
         kinds[kind_of(name)] += ms
-    cs.log(f"[profile] {label}: device {device:.3f} ms a call, unprofiled wall {wall:.3f} ms "
-           f"(device idle {1 - device / wall:.1%}), {reps} calls profiled [{card}]")
+    launches = sum(n for _, n in per_name.values()) // reps
+    cs.log(f"[profile] {label}: device {device:.3f} ms a call in {launches} launches, unprofiled "
+           f"wall {wall:.3f} ms (device idle {1 - device / wall:.1%}), {reps} calls profiled "
+           f"[{card}]")
     for kind, ms in sorted(kinds.items(), key=lambda kv: -kv[1]):
         cs.log(f"[profile]   {kind:32s} {ms:9.3f} ms {ms / device:6.1%}")
     for name, (ms, n) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:top]:
         cs.log(f"[profile]     {ms:9.3f} ms {n // reps:5d} launches  {name[:150]}")
-    return {"device_ms": device, "wall_ms": wall, "kinds_ms": kinds}
+    return {"device_ms": device, "wall_ms": wall, "launches": launches, "kinds_ms": kinds}
+
+
+def pit_fill_levels(torch, nir, border, card):
+    """The pit fill of ``nir`` level by level, coarsest first, under both
+    schedules of a level's fixpoint: seconds (from the end of the level
+    before, so with the level's upsampling), sweeps and swept cells."""
+    from satellite_approximation_tpu_torch.ops import pitfill
+
+    out = {}
+    tiled_from = pitfill._TILED_MIN_SIZE
+    try:
+        for schedule, threshold in (("active tiles", tiled_from), ("whole raster", 1 << 62)):
+            pitfill._TILED_MIN_SIZE = threshold  # the one tuning constant that picks the schedule
+            total = 0.0
+
+            def on_level(lvl, shape, rounds):
+                nonlocal t0, total
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                total += dt
+                sweeps = sum(c for _, c in rounds)
+                swept = sum(cells * c for cells, c in rounds) / (shape[0] * shape[1])
+                cs.log(f"[profile] pit fill, {schedule}, level {lvl} ({shape[0]}x{shape[1]}): "
+                       f"{dt:.3f} s, {len(rounds)} rounds, {sweeps} sweeps, {swept:.0f} "
+                       "level-sizes swept")
+                out[f"{schedule} level {lvl}"] = {"s": dt, "sweeps": sweeps, "swept": swept}
+                t0 = time.perf_counter()
+
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pitfill.pit_fill(nir, border, on_level=on_level)
+            cs.log(f"[profile] pit fill, {schedule}: {total:.3f} s in all [{card}]")
+            out[schedule] = total
+    finally:
+        pitfill._TILED_MIN_SIZE = tiled_from
+    return out
+
+
+def matching_forms(torch, dev, scene, n, card):
+    """The stages before the matching by hand (no writer thread runs beside
+    them), then ``match_clouds_shadows`` in turns in three forms: as
+    ``detect`` calls it (the separability check of each pass, then the vector
+    form of the affine), the general per-pixel sweep alone and the vector form
+    alone (both through ``sweep_fn=``, which skips the check). Seconds of
+    each call, and of the LS geometry stage without a writer beside it."""
+    import numpy as np
+
+    from satellite_approximation_tpu_torch.config import DEFAULT_DETECTION as cfg
+    from satellite_approximation_tpu_torch.device import divide
+    from satellite_approximation_tpu_torch.models.detection import cloud_mask as cm
+    from satellite_approximation_tpu_torch.models.detection import matching
+    from satellite_approximation_tpu_torch.models.detection import shadow_mask as sm
+    from satellite_approximation_tpu_torch.models.detection.pipeline import get_diagonal_distance
+    from satellite_approximation_tpu_torch.ops import geometry
+
+    def seconds(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    def norm(name, top):
+        return divide(torch.as_tensor(scene[name], device=dev).to(torch.float32), float(top))
+
+    diag = get_diagonal_distance(-114.0, 50.5, -112.5, 51.5) * (n / cs.TILE)
+    scl = torch.as_tensor(scene["SCL"], device=dev)
+    gen = cm.generate_cloud_mask_ignore_low_probability(
+        norm("CLP", 255), norm("CLD", 100), scl, cfg.cloud_mask, device_output=True)
+    cloud_map, clouds = cm.partition_cloud_mask(
+        gen.cloud_mask_no_processing, diag, cfg.min_cloud_size_for_ray_casting, device=dev)
+    psm = sm.generate_potential_shadow_mask(
+        norm("B08", 65535), gen.cloud_mask_no_processing, scl, cfg.shadow_mask,
+        device_output=True, device=dev)
+
+    def ls_points():
+        return [geometry.ls_point_equal_to_device(scene[z], scene[a], (n, n), diag, d, device=dev)
+                for z, a, d in (("sunZenithAngles", "sunAzimuthAngles", cfg.distance_to_sun_km),
+                                ("viewZenithMean", "viewAzimuthMean", cfg.distance_to_view_km))]
+
+    ls_points()
+    geo = [seconds(ls_points)[1] for _ in range(3)]
+    sun, view = ls_points()
+    cs.log(f"[profile] sun/view geometry {n}x{n} with no writer thread beside it: "
+           + ", ".join(f"{t:.3f}" for t in geo) + f" s [{card}]")
+
+    forms = {"check + vector form (as detect)": None,
+             "general sweep, no check": matching._bucket_sweep,
+             "vector form, no check": matching._bucket_sweep_sep}
+
+    def match(sweep_fn):
+        return matching.match_clouds_shadows(
+            clouds, cloud_map, gen.cloud_mask_no_processing, psm.mask, diag, sun, view,
+            cfg.matching, use_native=False, sweep_fn=sweep_fn, device=dev)
+
+    want = match(None)  # warm-up, and what the other forms must equal
+    times = {name: [] for name in forms}
+    order = list(forms) + list(forms)[::-1]
+    for name in order + order:
+        got, dt = seconds(lambda: match(forms[name]))
+        times[name].append(dt)
+        same = (np.array_equal(got.shadow_mask, want.shadow_mask)
+                and {k: (v.height, v.similarity) for k, v in got.solutions.items()}
+                == {k: (v.height, v.similarity) for k, v in want.solutions.items()})
+        if not same:
+            raise AssertionError(f"matching, {name}: differs from the default form")
+    for name, ts in times.items():
+        cs.log(f"[profile] matching {n}x{n}, {len(clouds)} clouds, {name}: "
+               + ", ".join(f"{t:.3f}" for t in ts) + f" s [{card}]")
+    return {"geometry_alone_s": geo, "matching_s": times, "clouds": len(clouds)}
+
+
+def profile_detect(torch, dev, card, top, n):
+    """A warm ``detect`` at n x n through the device stages, its pit fill
+    alone, the pit fill level by level, and the matching's forms."""
+    import numpy as np
+
+    from satellite_approximation_tpu_torch.ops.pitfill import pit_fill
+
+    scene = cs.synthesize(n)
+
+    def detect():  # timed inside: the scene's file and the read-back are not detect's
+        return cs.run_detect(torch, dev, scene, n, ("auto", "auto"), "profiled detect", card)[3]
+
+    out = {"detect": profile_call(torch, f"detect {n}x{n}, backend auto", detect, 1, card, top,
+                                  wall_runs=2)}
+    nir = torch.as_tensor(scene["B08"].astype(np.float32) / np.float32(65535), device=dev)
+    border = float(nir.median())
+
+    def fill():
+        pit_fill(nir, border)
+
+    out["pit_fill"] = profile_call(torch, f"pit_fill {n}x{n} (border = the median)", fill, 1, card,
+                                   top, wall_runs=2)
+    out["pit_fill_levels"] = pit_fill_levels(torch, nir, border, card)
+    out["matching_forms"] = matching_forms(torch, dev, scene, n, card)
+    return out
 
 
 def main() -> int:
@@ -93,6 +245,8 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--top", type=int, default=12, help="kernels listed per call")
+    parser.add_argument("--detect", type=int, nargs="?", const=4096, default=None, metavar="N",
+                        help="profile the detection path at N x N instead of the fill")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device (torch.cuda.is_available() is False)",
@@ -105,6 +259,10 @@ def main() -> int:
 
     dev = torch.device("cuda")
     card = cs.phase_device(torch)
+    if args.detect is not None:
+        print(json.dumps({"profile": {"card": card,
+                                      **profile_detect(torch, dev, card, args.top, args.detect)}}))
+        return 0
     cs.phase_build(K)
     out = {"card": card}
 

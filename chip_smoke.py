@@ -6,6 +6,7 @@ its public entry points at the size users run, and certifies the results.
 
     python3 chip_smoke.py                   # the smoke run
     python3 chip_smoke.py --against DIR     # kernels of the tree in DIR against these
+    python3 chip_smoke.py --tile-detect     # detection alone, once at a full 10980^2 tile
 
 Phases (each raises on failure, so the run exits non-zero):
 
@@ -47,7 +48,18 @@ Phases (each raises on failure, so the run exits non-zero):
 7. benchmark paths: ``benchmarks/x_kernel_v2.py``'s comparison of the
    separate-operand smoother with the general one (4096^2, 6 sweeps; the
    former beside its bound), and ``benchmarks/x_stride_probe.py``'s five
-   idioms with its own checks.
+   idioms with its own checks;
+8. detection: ``detect`` from pre-decoded rasters of a synthetic scene to the
+   four mask files and a ``Status``, no hand-written kernel on its path.
+   8a at 1024^2 in both routes (host: native scan and numpy refinement;
+   all-device: torch sweep and refinement): cloud and potential-shadow masks
+   equal, object and final masks at IoU >= 0.995, the scene not trivial; the
+   normalization on the card bit-equal to numpy's f32 division for every
+   u8 and u16 value, the pit fill on the card bit-equal to the native
+   priority flood and the device LS reduction within 1e-6 of the host one. 8b at 4096^2 (>= 16
+   Mpix, so backend "auto" takes the device stages), cold and warm, with the
+   stage table, each stage's route and the peak device memory.
+   ``--tile-detect`` runs phases 1 and 8 alone with 8b at 10980^2.
 
 Each path that a kernel's launch count is read from (phases 4, 6 and 7)
 runs with every count set to 0 just before it.
@@ -1035,6 +1047,242 @@ def phase_benchmark_paths(torch, K, dev, card):
     return counts
 
 
+# ------------------------------------------------------------------ phase 8: detection
+
+
+def synthesize(n: int, seed: int = 7):
+    """The synthetic Sentinel-2-style scene of
+    ``benchmarks/bench_detect_fulltile.py``: a blobby cloud field (CLP, CLD
+    and SCL consistent), NIR with dark shadow copies of the clouds displaced
+    along the sun azimuth (so the height sweep finds real matches) and
+    constant-gradient angle rasters, as the raw rasters ``detect`` decodes."""
+    from satellite_approximation_tpu_torch.ops.blur import gaussian_blur_host
+
+    rng = np.random.default_rng(seed)
+    # blobby cloud probability: max of local Gaussian bumps, each computed
+    # only inside its ~4-sigma window
+    base = np.zeros((n, n), np.float32)
+    n_blobs = max(60, n // 40)
+    for _ in range(n_blobs):
+        cy, cx = rng.integers(0, n, 2)
+        ry = int(rng.integers(n // 400 + 4, n // 40 + 8))
+        rx = int(rng.integers(n // 400 + 4, n // 40 + 8))
+        y0, y1 = max(cy - 4 * ry, 0), min(cy + 4 * ry + 1, n)
+        x0, x1 = max(cx - 4 * rx, 0), min(cx + 4 * rx + 1, n)
+        yy = np.arange(y0, y1)[:, None]
+        xx = np.arange(x0, x1)[None, :]
+        d2 = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2
+        np.maximum(
+            base[y0:y1, x0:x1],
+            np.exp(-0.5 * d2.astype(np.float32)),
+            out=base[y0:y1, x0:x1],
+        )
+    clp = np.clip(base * 255 * 1.2, 0, 255).astype(np.uint8)
+    cld = np.clip(base * 100 * 1.1, 0, 100).astype(np.uint8)
+    cloud = base > 0.55
+
+    scl = np.full((n, n), 4, np.uint8)  # vegetation
+    scl[base > 0.75] = 9  # cloud high probability
+    scl[(base > 0.65) & (base <= 0.75)] = 8  # cloud medium
+
+    # shadows: clouds displaced north-west (sun from the south-east),
+    # darkening the NIR
+    dy, dx = -(n // 180), -(n // 240)
+    shadow = np.zeros_like(cloud)
+    src = cloud[max(-dy, 0) : n - max(dy, 0), max(-dx, 0) : n - max(dx, 0)]
+    shadow[max(dy, 0) : n - max(-dy, 0), max(dx, 0) : n - max(-dx, 0)] = src
+    # spatially correlated NIR like real 10 m imagery (white noise makes
+    # every pixel a pit — adversarial and unrepresentative for pit fill)
+    g = gaussian_blur_host(rng.standard_normal((n, n)).astype(np.float32), 3.0)
+    g = g / max(float(g.std()), 1e-6)
+    nir = (6000 + 1500 * g).clip(500, 10000)
+    nir[shadow] *= 0.35
+    nir = nir.astype(np.uint16)
+
+    gy, gx = np.ogrid[:n, :n]
+    grad = (gy / n + gx / n).astype(np.float32)
+    return {
+        "CLP": clp,
+        "CLD": cld,
+        "SCL": scl,
+        "B08": nir,
+        "sunZenithAngles": 35.0 + 0.5 * grad,
+        "sunAzimuthAngles": 145.0 + 0.5 * grad,
+        "viewZenithMean": 5.0 + 0.2 * grad,
+        "viewAzimuthMean": 100.0 + 0.3 * grad,
+    }
+
+
+MASK_FILES = ("cloud_mask", "potential_shadows", "object_based_shadows", "shadow_mask")
+
+
+def run_detect(torch, dev, scene, n, backends, label, card):
+    """One ``detect`` of ``scene`` on the card, from pre-decoded rasters to
+    the four mask files in a temporary directory: (status, masks read back
+    from the files, StageTimer, seconds, peak GiB). The peak is the most the
+    call held above what was allocated before it (earlier phases leave their
+    cached hierarchies on the card). ``backends``: (refinement, matching)
+    backend values."""
+    import dataclasses
+    import tempfile
+
+    from satellite_approximation_tpu_torch.config import DEFAULT_DETECTION
+    from satellite_approximation_tpu_torch.models.detection.pipeline import (
+        CloudParams, detect, get_diagonal_distance,
+    )
+    from satellite_approximation_tpu_torch.utils.geotiff import GeoTIFF, write_geotiff
+    from satellite_approximation_tpu_torch.utils.profiling import StageTimer
+
+    config = dataclasses.replace(
+        DEFAULT_DETECTION,
+        refinement=dataclasses.replace(DEFAULT_DETECTION.refinement, backend=backends[0]),
+        matching=dataclasses.replace(DEFAULT_DETECTION.matching, backend=backends[1]),
+    )
+    diag = get_diagonal_distance(-114.0, 50.5, -112.5, 51.5) * (n / TILE)
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        # only B08 needs to exist on disk (mask writes copy its GeoTIFF tags)
+        write_geotiff(scene["B08"], work / "B08.tif")
+        params = CloudParams.from_root(work)
+        timer = StageTimer(dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        status = detect(params, diag, use_cache=False, config=config, timer=timer,
+                        inputs=dict(scene), device=dev)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+        masks = {name: GeoTIFF.open(work / f"{name}.tif").read().astype(bool)
+                 for name in MASK_FILES}
+    for name, m in masks.items():
+        if m.shape != (n, n):
+            raise AssertionError(f"{label}: {name} has shape {m.shape}")
+    matched = sum(1 for k, t in timer.stages if k.startswith("matching/"))
+    for v in (status.percent_clouds, status.percent_shadows, status.percent_invalid):
+        if v is None or not math.isfinite(v):
+            raise AssertionError(f"{label}: status {status}")
+    if not (masks["cloud_mask"].any() and masks["object_based_shadows"].any()
+            and status.percent_shadows > 0 and matched):
+        raise AssertionError(f"{label}: trivial scene (status {status})")
+    log(f"[8 detect] {label}: {n}x{n} in {dt:.3f} s, peak {peak:.3f} GiB, clouds "
+        f"{status.percent_clouds:.6f} shadows {status.percent_shadows:.6f} invalid "
+        f"{status.percent_invalid:.6f}, object-shadow pixels "
+        f"{int(masks['object_based_shadows'].sum())} [{card}]")
+    for stage, route in timer.routes.items():
+        log(f"[8 detect]   route of {stage}: {route}")
+    return status, masks, timer, dt, peak
+
+
+def log_stages(timer, label):
+    """The StageTimer table, the per-bucket matching stages summed."""
+    rows: dict[str, float] = {}
+    for name, t in timer.stages:
+        key = name.split(" ")[0] + " (all buckets)" if name.startswith(
+            ("matching/sweep", "matching/detail")) else name
+        rows[key] = rows.get(key, 0.0) + t
+    log(f"[8 detect]   stages of {label}: " + "; ".join(f"{k} {v:.3f}" for k, v in rows.items()))
+
+
+def _iou(a, b):
+    union = np.logical_or(a, b).sum()
+    return 1.0 if union == 0 else float(np.logical_and(a, b).sum() / union)
+
+
+def phase_detect(torch, dev, card, big=4096):
+    """Phase 8: ``detect`` through its entry point on the card. 8a at 1024^2
+    in both routes, held against each other, with the pit fill against the
+    native priority flood and the device LS reduction against the host one;
+    8b at ``big``^2 (>= 16 Mpix: the device stages under backend "auto"),
+    cold and warm."""
+    from satellite_approximation_tpu_torch import native
+    from satellite_approximation_tpu_torch.config import BIG_SCENE_PIXELS
+    from satellite_approximation_tpu_torch.ops import geometry
+    from satellite_approximation_tpu_torch.ops.pitfill import pit_fill
+
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("the native library did not build (g++ on PATH?): the host route "
+                             "cannot run, see csrc/build/gxx_satnative.log")
+    log(f"[8 detect] native library {native.build().relative_to(REPO)} in "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    # ---- 8a: both routes at 1024^2
+    n = 1024
+    scene = synthesize(n)
+    host = run_detect(torch, dev, scene, n, ("host", "native"), "8a host route", card)
+    device = run_detect(torch, dev, scene, n, ("torch", "torch"), "8a all-device route", card)
+    for name in MASK_FILES:
+        a, b = host[1][name], device[1][name]
+        differ = int((a != b).sum())
+        log(f"[8 detect] 8a {name}: {int(a.sum())} set, {differ} pixels differ between the "
+            f"routes, IoU {_iou(a, b):.6f}")
+        # the cloud and potential-shadow stages are the same device code on
+        # both routes; matching and refinement run as C++/numpy on one and as
+        # torch on the other, and may flip pixels at a threshold
+        exact = name in ("cloud_mask", "potential_shadows")
+        if (exact and differ) or _iou(a, b) < 0.995:
+            raise AssertionError(f"8a: {name} differs between the routes ({differ} pixels)")
+    hs, ds = host[0], device[0]
+    if hs.percent_clouds != ds.percent_clouds or abs(hs.percent_shadows - ds.percent_shadows) > 1e-3:
+        raise AssertionError(f"8a: statuses differ: {hs} against {ds}")
+
+    from satellite_approximation_tpu_torch.models.detection.pipeline import _read_normalized_u8
+
+    for dtype, max_value in ((np.uint8, 255), (np.uint8, 100), (np.uint16, 65535)):
+        raw = np.arange(np.iinfo(dtype).max + 1).astype(dtype).reshape(-1, 16)
+        got = _read_normalized_u8(Path("X.tif"), max_value, {"X": raw}, dev).cpu().numpy()
+        if not np.array_equal(got, raw.astype(np.float32) / np.float32(max_value)):
+            raise AssertionError(f"8a: {dtype.__name__} over {max_value} on the card differs from "
+                                 "numpy's f32 division")
+    log("[8 detect] 8a normalization on the card: every u8 value over 255 and 100 and every u16 "
+        "value over 65535 bit-equal to numpy's f32 division")
+    nir = scene["B08"].astype(np.float32) / np.float32(65535)
+    border = float(np.partition(nir.ravel(), nir.size // 2)[nir.size // 2])
+    t0 = time.perf_counter()
+    filled = pit_fill(torch.as_tensor(nir, device=dev), border).cpu().numpy()
+    t_dev = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    flood = native.pit_fill_flood(nir, border)
+    t_host = time.perf_counter() - t0
+    if not np.array_equal(filled, flood):
+        raise AssertionError("8a: pit_fill on the card differs from native.pit_fill_flood")
+    log(f"[8 detect] 8a pit_fill {n}x{n} bit-equal to the native priority flood "
+        f"({t_dev:.3f} s on the card, {t_host:.3f} s on the host)")
+    shape = (n, n)
+    for zen, azi, z in (("sunZenithAngles", "sunAzimuthAngles", 1.5e9),
+                        ("viewZenithMean", "viewAzimuthMean", 785.0)):
+        p_dev = geometry.ls_point_equal_to_device(scene[zen], scene[azi], shape, 20.0, z, device=dev)
+        p_host = geometry.ls_point_equal_to_chunked(scene[zen], scene[azi], shape, 20.0, z)
+        rel = float(np.abs(p_dev - p_host).max() / np.abs(p_host).max())
+        log(f"[8 detect] 8a LS point from {zen}: device against host, relative {rel:.3e}")
+        if not rel <= 1e-6:
+            raise AssertionError(f"8a: LS point differs by {rel}")
+
+    # ---- 8b: full width, the device stages under backend "auto"
+    if big * big < BIG_SCENE_PIXELS:
+        raise AssertionError(f"8b needs >= {BIG_SCENE_PIXELS} pixels, got {big}^2")
+    scene = synthesize(big)
+    out = {}
+    for label in ("cold", "warm"):
+        status, masks, timer, dt, peak = run_detect(
+            torch, dev, scene, big, ("auto", "auto"), f"8b {label}", card)
+        log_stages(timer, f"8b {label}")
+        on_host = [stage for stage, route in timer.routes.items()
+                   if not route.startswith("device") or "host" in route]
+        on_host += [name for name, _ in timer.stages if name.startswith("matching/native scan")]
+        # only the hole fill of the probability surface is host work on this route
+        if on_host:
+            raise AssertionError(f"8b: stages left the card: {on_host} ({timer.routes})")
+        out[label] = (status, masks, dt, peak)
+    for name in MASK_FILES:
+        if not np.array_equal(out["cold"][1][name], out["warm"][1][name]):
+            raise AssertionError(f"8b: {name} differs between two runs on the same scene")
+    log(f"[8 detect] 8b detect {big}x{big}: cold {out['cold'][2]:.3f} s, warm "
+        f"{out['warm'][2]:.3f} s, peak {out['warm'][3]:.3f} GiB [{card}]")
+
+
 def load_kernels_of(tree: Path):
     """``ops/stencil_kernels.py`` of the checkout at ``tree``, under a name of
     its own: it builds that checkout's ``csrc/`` into that checkout's
@@ -1193,6 +1441,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--against", type=Path, default=None,
                         help="a checkout whose compiled kernels to time against this one's")
+    parser.add_argument("--tile-detect", action="store_true",
+                        help="phases 1 and 8 alone, 8b at the full 10980^2 tile")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1207,6 +1457,9 @@ def main() -> int:
 
     dev = torch.device("cuda")
     card = phase_device(torch)
+    if args.tile_detect:
+        phase_detect(torch, dev, card, big=TILE)
+        return 0
     phase_build(K)
     if args.against is not None:
         print(json.dumps({"against": phase_against(torch, K, mg, dev, card,
@@ -1218,6 +1471,7 @@ def main() -> int:
     counts.update(phase_general_iterate(torch, K, dev, card, system, tile))
     del tile
     counts.update(phase_benchmark_paths(torch, K, dev, card))
+    phase_detect(torch, dev, card)
     missing = [name for name in KERNELS if counts.get(name, 0) == 0]
     if missing:
         raise AssertionError(f"kernels never launched on their paths: {missing}")

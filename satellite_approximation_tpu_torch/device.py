@@ -25,6 +25,15 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def divide(t: torch.Tensor, value: float) -> torch.Tensor:
+    """``t / value`` as one correctly rounded IEEE division in ``t``'s dtype.
+    With a Python number for a divisor, torch's CUDA kernel multiplies by
+    the reciprocal instead, which differs from the division in the last bit
+    for about one value in four; a 0-d tensor divisor takes the true
+    division on every device."""
+    return t / torch.full((), value, dtype=t.dtype, device=t.device)
+
+
 def as_tensor(x, device: torch.device, dtype: torch.dtype | None = None) -> torch.Tensor:
     """``x`` (numpy array or tensor) as a contiguous tensor on ``device``."""
     if isinstance(x, np.ndarray) and not x.flags.writeable:

@@ -150,6 +150,31 @@ def filling_missing_portions_smooth_boundaries(
     return fill_missing_portion_smooth_boundary(input_image, invalid_pixels, device=device)
 
 
+def find_connected_components(invalid: np.ndarray, min_area: int = 1, device=None):
+    """Connected regions of an invalid-pixel mask.
+
+    The reference *declares and unit-tests* this function but never
+    implements it (approx/laplace.h:11-20; tests/approximation.h:55-76) —
+    implemented here for real: returns (matrix, region_map) matching the
+    declared ``ConnectedComponents`` struct, where ``matrix`` holds the
+    compact region id per pixel (-1 background) and ``region_map`` maps
+    region id -> list of (row, col) pixel indices.
+
+    The native C++ flood labels the mask on the host where the library is
+    built; otherwise the label propagation runs on ``device`` (``None``: the
+    CUDA device, raises without one).
+    """
+    from ..ops.components import partition_regions
+
+    id_map, regions = partition_regions(
+        np.asarray(invalid, bool), min_area=min_area, device=device)
+    region_map: dict[int, list[tuple[int, int]]] = {}
+    for r in regions:
+        rows, cols = np.nonzero(id_map == r.id)
+        region_map[r.id] = list(zip(rows.tolist(), cols.tolist()))
+    return id_map, region_map
+
+
 def apply_laplace(
     image: np.ndarray, invalid_image: np.ndarray, red_threshold: float = 220.0, device=None
 ) -> np.ndarray:

@@ -1,12 +1,21 @@
-"""Raster primitives of the port. So far: the fused smoother from a given
-iterate, the counterpart of ``satellite_approximation_tpu.ops.fused_jacobi_tpu``
-(the port routes by the operands' device, so ``pallas_available`` has no
-counterpart)."""
+"""Raster primitives of the port: the counterparts of the JAX package's
+``ops`` (blur, masks, morphology, pit fill, connected components,
+statistics, geometry), as plain torch ops on tensors that run where the
+tensor lies, beside the fused smoother from a given iterate, the counterpart
+of ``satellite_approximation_tpu.ops.fused_jacobi_tpu`` (the port routes by
+the operands' device, so ``pallas_available`` has no counterpart)."""
 
 from __future__ import annotations
 
 import torch
 
+from . import geometry, image
+from .blur import gaussian_blur, strip_kernel
+from .components import Region, connected_components, partition_regions
+from .masks import SCL, cover_count, cover_percentage, normalize, scl_mask, threshold
+from .morphology import close, cv_gaussian_blur, dilate, ellipse_kernel, erode
+from .pitfill import pit_fill
+from .stats import linear_step, masked_percentile, percentile, trimmed_average
 from .stencil_kernels import invm_for_kernel, jacobi
 
 
@@ -24,4 +33,29 @@ def fused_jacobi(u: torch.Tensor, b: torch.Tensor, umask: torch.Tensor, deg: tor
     return jacobi(u, b.to(u.dtype), invm, omegas, emit_residual)
 
 
-__all__ = ["fused_jacobi"]
+__all__ = [
+    "SCL",
+    "Region",
+    "close",
+    "connected_components",
+    "cover_count",
+    "cover_percentage",
+    "cv_gaussian_blur",
+    "dilate",
+    "ellipse_kernel",
+    "erode",
+    "fused_jacobi",
+    "gaussian_blur",
+    "geometry",
+    "image",
+    "linear_step",
+    "masked_percentile",
+    "normalize",
+    "partition_regions",
+    "percentile",
+    "pit_fill",
+    "scl_mask",
+    "strip_kernel",
+    "threshold",
+    "trimmed_average",
+]

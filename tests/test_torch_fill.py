@@ -249,8 +249,10 @@ class TestDevice:
         with pytest.raises(NotImplementedError, match="slice D"):
             check_single_device(object(), torch.device("cpu"))
         monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+        # "auto" solves on the resolved device however many the host holds
+        assert check_single_device("auto", torch.device("cuda")) is None
         with pytest.raises(NotImplementedError, match="slice D"):
-            check_single_device("auto", torch.device("cuda"))
+            check_single_device(object(), torch.device("cuda"))
 
     def test_import_leaves_jax_out(self):
         code = (

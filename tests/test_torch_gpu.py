@@ -1,5 +1,9 @@
 """The port's CUDA kernels on the card: each held bit for bit against its
 plain PyTorch version, and the fill on the card against the fill on the CPU.
+Then the detection ops, which are plain torch ops: the same op on the card
+and on the CPU must give equal bits wherever the CPU tests demand equal bits
+of the two packages (that shows that no TF32, no FMA contraction and no
+atomic float add leaked in), and ``detect`` in both routes at 512^2.
 
 These tests import neither jax nor the JAX package, so they run on a CUDA
 host without JAX; there the repository's conftest (which imports jax) is
@@ -351,3 +355,210 @@ def test_fill_on_card_matches_cpu(cuda_device):
     assert on_card.error <= 1e-9 and on_cpu.error <= 1e-9
     assert abs(on_card.iterations - on_cpu.iterations) <= 1
     np.testing.assert_allclose(on_card.x, on_cpu.x, rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------------------------- detection
+
+
+def _both(fn, *arrays, device):
+    """``fn`` on CPU tensors and on card tensors of the same arrays; the
+    results as numpy arrays."""
+    def run(dev):
+        out = fn(*[torch.from_numpy(np.array(a)).to(dev) for a in arrays])
+        outs = out if isinstance(out, tuple) else (out,)
+        return [o.cpu().numpy() for o in outs]
+
+    return run(CPU), run(device)
+
+
+def _assert_equal_bits(cpu, card):
+    assert len(cpu) == len(card)
+    for a, b in zip(cpu, card):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert a.tobytes() == b.tobytes()
+
+
+@pytest.mark.gpu
+class TestDetectionOpsOnCard:
+    @pytest.mark.parametrize("dtype,max_value", [(np.uint8, 255), (np.uint8, 100), (np.uint16, 65535)])
+    def test_normalization_every_value(self, cuda_device, dtype, max_value, tmp_path):
+        from satellite_approximation_tpu_torch.models.detection.pipeline import _read_normalized_u8
+
+        raw = np.arange(np.iinfo(dtype).max + 1, dtype=np.int64).astype(dtype).reshape(-1, 16)
+        got = _read_normalized_u8(tmp_path / "X.tif", max_value, {"X": raw}, cuda_device)
+        assert got.device.type == "cuda"
+        assert np.array_equal(got.cpu().numpy(), raw.astype(np.float32) / np.float32(max_value))
+
+    @pytest.mark.parametrize("sigma", [1.0, 4.0])
+    def test_blurs(self, cuda_device, sigma):
+        from satellite_approximation_tpu_torch.ops.blur import gaussian_blur, gaussian_blur_host
+        from satellite_approximation_tpu_torch.ops.morphology import cv_gaussian_blur
+
+        x = np.random.default_rng(60).random((300, 257)).astype(np.float32)
+        cpu, card = _both(lambda t: gaussian_blur(t, sigma), x, device=cuda_device)
+        _assert_equal_bits(cpu, card)
+        assert np.array_equal(card[0], gaussian_blur_host(x, sigma))
+        _assert_equal_bits(*_both(lambda t: cv_gaussian_blur(t, 11), x, device=cuda_device))
+
+    @pytest.mark.parametrize("radius", [5, 15])
+    def test_morphology_and_masks(self, cuda_device, radius):
+        from satellite_approximation_tpu_torch.ops import masks, morphology
+
+        rng = np.random.default_rng(61)
+        m = rng.random((400, 333)) > 0.99
+        for op in (morphology.dilate, morphology.erode, morphology.close):
+            _assert_equal_bits(*_both(lambda t: op(t, radius), m, device=cuda_device))
+        k = np.ones((3, 5), np.uint8)
+        k[1, 2] = k[0, 0] = 0  # not chords: the convolution route, TF32 off
+        _assert_equal_bits(*_both(lambda t: morphology._count_conv(t, k), m, device=cuda_device))
+        scl = rng.integers(0, 12, (64, 70)).astype(np.uint8)
+        _assert_equal_bits(*_both(lambda t: masks.scl_mask(t, (masks.SCL.CLOUD_HIGH, masks.SCL.WATER)),
+                                  scl, device=cuda_device))
+        _assert_equal_bits(*_both(masks.cover_percentage, m, device=cuda_device))
+
+    @pytest.mark.parametrize("shape", [(300, 257), (1024, 1024)])
+    def test_pit_fill(self, cuda_device, shape):
+        from satellite_approximation_tpu_torch import native
+        from satellite_approximation_tpu_torch.ops.pitfill import pit_fill
+        from torch_parity import smooth
+
+        x = (0.1 + 0.8 * smooth(*shape, seed=62)).astype(np.float32)
+        got = pit_fill(torch.from_numpy(x).to(cuda_device), 0.45)
+        assert got.device.type == "cuda"
+        assert native.available(), "g++ is needed beside nvcc"
+        assert np.array_equal(got.cpu().numpy(), native.pit_fill_flood(x, 0.45))
+
+    def test_components_and_percentile(self, cuda_device):
+        from satellite_approximation_tpu_torch.models.detection.shadow_mask import _dynamic_percentile
+        from satellite_approximation_tpu_torch.ops import components
+
+        rng = np.random.default_rng(63)
+        m = rng.random((200, 240)) > 0.6
+        _assert_equal_bits(*_both(components.connected_components, m, device=cuda_device))
+        on_card = components.partition_regions(torch.from_numpy(m).to(cuda_device), 3)
+        on_host = components.partition_regions(m, 3)
+        assert np.array_equal(on_card[0], on_host[0]) and on_card[1] == on_host[1]
+        v = rng.random((500, 400)).astype(np.float32)
+        sel = rng.random((500, 400)) > 0.5
+        for percent in (0.0, 0.3, 0.55, 1.0):
+            _assert_equal_bits(*_both(
+                lambda a, b: _dynamic_percentile(a, b, torch.tensor(percent, device=a.device)),
+                v, sel, device=cuda_device))
+
+    def test_host_mask_without_library_is_labelled_on_the_card(self, cuda_device, monkeypatch):
+        """No ``device=`` given and no C++ flood: the label propagation runs
+        on the CUDA device, not on the CPU."""
+        from satellite_approximation_tpu_torch import native
+        from satellite_approximation_tpu_torch.models import laplace
+        from satellite_approximation_tpu_torch.ops import components
+
+        m = np.random.default_rng(64).random((120, 150)) > 0.6
+        want = components.partition_regions(m, 3)
+        assert native.available(), "g++ is needed beside nvcc"
+        monkeypatch.setattr(native, "get_lib", lambda: None)
+        seen, real = [], components.connected_components
+
+        def recording(mask, connectivity=8):
+            seen.append(mask.device.type)
+            return real(mask, connectivity)
+
+        monkeypatch.setattr(components, "connected_components", recording)
+        got = components.partition_regions(m, 3)
+        id_map, region_map = laplace.find_connected_components(m, 3)
+        assert seen == ["cuda", "cuda"]
+        assert np.array_equal(got[0], want[0]) and got[1] == want[1]
+        assert np.array_equal(id_map, want[0]) and len(region_map) == len(want[1])
+
+    def test_refinement_ops(self, cuda_device):
+        from satellite_approximation_tpu_torch.models.detection import refinement, refinement_torch
+
+        rng = np.random.default_rng(64)
+        a = rng.random((600, 500)).astype(np.float32)
+        a[:300] = 0.0  # most pixels in one cell: the contended adds
+        b = rng.random((600, 500)).astype(np.float32)
+        s = rng.random((600, 500)) > 0.9
+        for divisions in ((8, 16, 32, 64, 128), (6, 10)):
+            cpu, card = _both(lambda x, y, z: tuple(
+                t for pair in refinement_torch._histograms(x, y, z, divisions) for t in pair),
+                a, b, s, device=cuda_device)
+            _assert_equal_bits(cpu, card)
+        seeds = rng.random((3, 64, 80)) > 0.98
+        _assert_equal_bits(*_both(lambda t: refinement_torch._edt_sq(t, 60, 77, band=16), seeds,
+                                  device=cuda_device))
+        surface = refinement.probability_map(s, a, b)
+        ext = surface._extended()
+        cloud = rng.random((600, 500)) > 0.8
+        _assert_equal_bits(*_both(
+            lambda e, x, y, o, c: refinement_torch._sample_final(e, x, y, o, c, 0.15),
+            ext, a, b, s, cloud, device=cuda_device))
+        want = refinement.improved_shadow_mask(s, cloud, a, b, surface, 0.15)
+        got = refinement_torch.improved_shadow_mask(s, cloud, a, b, surface, 0.15, device=cuda_device)
+        assert np.array_equal(got, want)
+
+    def test_ls_point(self, cuda_device):
+        from satellite_approximation_tpu_torch.ops import geometry
+
+        gy, gx = np.ogrid[:700, :900]
+        grad = (gy / 700 + gx / 900).astype(np.float32)
+        zen, azi = 35.0 + 0.5 * grad, 145.0 + 0.5 * grad
+        got = geometry.ls_point_equal_to_device(zen, azi, (700, 900), 15.0, 785.0, device=cuda_device)
+        want = geometry.ls_point_equal_to_chunked(zen, azi, (700, 900), 15.0, 785.0)
+        assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+
+
+def _detect(scene, n, backends, device, work):
+    from satellite_approximation_tpu_torch import config
+    from satellite_approximation_tpu_torch.models.detection import pipeline
+    from satellite_approximation_tpu_torch.utils.geotiff import GeoTIFF, write_geotiff
+    from torch_parity import detection_config, mini_diagonal
+
+    work.mkdir()
+    write_geotiff(scene["B08"], work / "B08.tif")
+    params = pipeline.CloudParams.from_root(work)
+    status = pipeline.detect(params, mini_diagonal(n), use_cache=False, inputs=dict(scene),
+                             config=detection_config(config, *backends), device=device)
+    names = ("cloud_mask", "potential_shadows", "object_based_shadows", "shadow_mask")
+    return status, {k: GeoTIFF.open(work / f"{k}.tif").read().astype(bool) for k in names}
+
+
+@pytest.mark.gpu
+class TestDetectOnCard:
+    @pytest.mark.parametrize("backends", [("host", "native"), ("torch", "torch")],
+                             ids=["host-route", "all-device-route"])
+    def test_route_on_card_against_cpu(self, cuda_device, tmp_path, backends):
+        """The cloud and potential-shadow masks are equal bit for bit between
+        the card and the CPU; the object and final masks pass through exp,
+        sin and cos, which the two round differently: IoU >= 0.995, as the
+        JAX package holds its own routes to each other."""
+        from torch_parity import mini_scene
+
+        n = 512
+        scene = mini_scene(n)
+        card_status, card = _detect(scene, n, backends, cuda_device, tmp_path / "card")
+        cpu_status, cpu = _detect(scene, n, backends, "cpu", tmp_path / "cpu")
+        assert card["cloud_mask"].any() and card["object_based_shadows"].any()
+        assert card_status.percent_shadows > 0
+        for name in ("cloud_mask", "potential_shadows"):
+            assert np.array_equal(card[name], cpu[name]), name
+        for name in ("object_based_shadows", "shadow_mask"):
+            union = np.logical_or(card[name], cpu[name]).sum()
+            assert np.logical_and(card[name], cpu[name]).sum() / union >= 0.995, name
+        assert card_status.percent_clouds == cpu_status.percent_clouds
+        assert card_status.percent_shadows == pytest.approx(cpu_status.percent_shadows, abs=1e-3)
+
+    def test_sweep_on_card_equals_native_scan(self, cuda_device):
+        """Matching from the same clouds, masks and positions: the sweep on
+        the card and the C++ scan select the same heights and pixels."""
+        from satellite_approximation_tpu_torch.config import MatchingConfig
+        from satellite_approximation_tpu_torch.models.detection import cloud_mask, matching
+        from torch_parity import match_scene
+
+        mask, psm, sun, view, diag = match_scene(h=300, w=400, n_clouds=12, shift=(-3, -5), seed=11)
+        cmap, clouds = cloud_mask.partition_cloud_mask(mask, diag, 3)
+        args = (clouds, cmap, mask, psm, diag, sun, view)
+        want = matching.match_clouds_shadows(*args, MatchingConfig(backend="native"))
+        got = matching.match_clouds_shadows(*args, MatchingConfig(backend="torch"), device=cuda_device)
+        assert np.array_equal(got.shadow_mask, want.shadow_mask) and got.shadow_mask.any()
+        for k, w in want.solutions.items():
+            assert (got.solutions[k].height, got.solutions[k].similarity) == (w.height, w.similarity)
+            assert got.shadows[k].bounds == want.shadows[k].bounds

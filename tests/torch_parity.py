@@ -10,6 +10,7 @@ host.
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import numpy as np
@@ -163,12 +164,13 @@ def np32(x) -> np.ndarray:
     return np.asarray(x, np.float32)
 
 
-def assert_within_ulps(got, want, ulps: int = 2) -> None:
-    """max |got - want| <= ``ulps`` f32 ulps of max |want| (the scale of a
-    cascade residual's rounding)."""
+def assert_within_ulps(got, want, ulps: int = 2, scale: float | None = None) -> None:
+    """max |got - want| <= ``ulps`` f32 ulps of ``scale``; by default
+    max |want| (the scale of a cascade residual's rounding). Probability
+    rasters pass their range, 1.0."""
     got, want = np32(got), np32(want)
     assert got.shape == want.shape
-    bound = ulps * np.spacing(np.float32(np.max(np.abs(want))))
+    bound = ulps * np.spacing(np.float32(np.max(np.abs(want)) if scale is None else scale))
     diff = float(np.max(np.abs(got - want)))
     assert diff <= bound, f"max diff {diff} > {ulps} ulp of max|want| ({bound})"
 
@@ -181,3 +183,142 @@ def assert_bitwise(got, want) -> None:
     assert torch.equal(g.contiguous().view(view), w.contiguous().view(view)), (
         f"max |diff| {float((g.float() - w.float()).abs().max())}"
     )
+
+
+# ---------------------------------------------------------------- detection
+
+
+def match_scene(h=96, w=128, diag=10.0, n_clouds=3, seed=5, shift=(0, 14), border=False):
+    """Synthetic matching scene (the ``make_scene`` of tests/test_detection.py
+    as plain arrays): a few rectangular clouds and a potential-shadow field
+    displaced by ``shift`` = (rows, cols) pixels, with speckle. Returns
+    (cloud mask, potential shadows, sun position, view position, diagonal);
+    each package partitions the mask itself. ``border``: one more cloud that
+    touches the image's left and bottom border."""
+    r = np.random.default_rng(seed)
+    mask = np.zeros((h, w), dtype=bool)
+    for _ in range(n_clouds):
+        cy, cx = int(r.integers(18, h - 26)), int(r.integers(30, w - 30))
+        hh, ww = int(r.integers(4, 9)), int(r.integers(4, 10))
+        mask[cy : cy + hh, cx : cx + ww] = True
+    if border:
+        mask[h - 7 :, :9] = True
+    sun_pos = np.array([2.0e8, 1.0e8, 1.5e9])
+    view_pos = np.array([0.05, 0.1, 785.0])
+    dy, dx = shift
+    psm = np.roll(mask, (-dy, -dx), axis=(0, 1))
+    psm |= r.random((h, w)) > 0.96
+    psm &= ~mask
+    return mask, psm, sun_pos, view_pos, diag
+
+
+def mini_scene(n: int, seed: int = 7):
+    """Tiny synthetic Sentinel-2-style scene (clouds, displaced NIR shadows,
+    smooth angle rasters) — the ``_mini_scene`` of the JAX package's
+    ``parallel/detect.py`` rebuilt from a numpy seed, as the RAW rasters
+    ``detect`` decodes, keyed by file stem (CLP and CLD u8, B08 u16)."""
+    rng = np.random.default_rng(seed)
+    base = np.zeros((n, n), np.float32)
+    yy, xx = np.ogrid[:n, :n]
+    for _ in range(10):
+        cy, cx = rng.integers(n // 8, 7 * n // 8, 2)
+        ry = int(rng.integers(n // 32 + 2, n // 12 + 4))
+        rx = int(rng.integers(n // 32 + 2, n // 12 + 4))
+        d2 = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2
+        np.maximum(base, np.exp(-0.5 * d2.astype(np.float32)), out=base)
+    clp = np.clip(base * 255 * 1.2, 0, 255).astype(np.uint8)
+    cld = np.clip(base * 100 * 1.1, 0, 100).astype(np.uint8)
+    cloud = base > 0.55
+
+    scl = np.full((n, n), 4, np.uint8)
+    scl[base > 0.75] = 9
+    scl[(base > 0.65) & (base <= 0.75)] = 8
+
+    dy, dx = -max(n // 24, 2), -max(n // 32, 2)
+    shadow = np.zeros_like(cloud)
+    src = cloud[max(-dy, 0) : n - max(dy, 0), max(-dx, 0) : n - max(dx, 0)]
+    shadow[max(dy, 0) : n - max(-dy, 0), max(dx, 0) : n - max(-dx, 0)] = src
+    g = rng.standard_normal((n, n)).astype(np.float32)
+    for _ in range(6):
+        g = 0.25 * (
+            np.roll(g, 1, 0) + np.roll(g, -1, 0) + np.roll(g, 1, 1) + np.roll(g, -1, 1)
+        )
+    g = g / max(float(g.std()), 1e-6)
+    nir = (6000 + 1500 * g).clip(500, 10000)
+    nir[shadow] *= 0.35
+
+    grad = (yy / n + xx / n).astype(np.float32)
+    return {
+        "CLP": clp,
+        "CLD": cld,
+        "SCL": scl,
+        "B08": nir.astype(np.uint16),
+        "sunZenithAngles": 35.0 + 0.5 * grad,
+        "sunAzimuthAngles": 145.0 + 0.5 * grad,
+        "viewZenithMean": 5.0 + 0.2 * grad,
+        "viewAzimuthMean": 100.0 + 0.3 * grad,
+    }
+
+
+def mini_diagonal(n: int) -> float:
+    """A tile's ~219 km diagonal scaled to an n x n scene, km."""
+    return 100.0 * (n / 10980.0) * 219.0 / 100.0
+
+
+def normalized(scene: dict) -> dict:
+    """The f32 rasters the stages take, from a raw scene (host numpy f32
+    division, which the device normalization equals bit for bit)."""
+    return {
+        "clp": scene["CLP"].astype(np.float32) / np.float32(255),
+        "cld": scene["CLD"].astype(np.float32) / np.float32(100),
+        "nir": scene["B08"].astype(np.float32) / np.float32(65535),
+        "scl": scene["SCL"],
+    }
+
+
+def detection_config(mod, refinement: str, matching: str):
+    """``mod.DEFAULT_DETECTION`` (either package's config module) with the
+    two backends set."""
+    import dataclasses
+
+    c = mod.DEFAULT_DETECTION
+    return dataclasses.replace(
+        c,
+        refinement=dataclasses.replace(c.refinement, backend=refinement),
+        matching=dataclasses.replace(c.matching, backend=matching),
+    )
+
+
+NATIVE_ROUTES = ["native", "python"]
+
+
+@contextlib.contextmanager
+def jax_package_without_native():
+    """Run the JAX package's Python routes: whether its C++ library exists
+    depends on a build that concurrent test workers race for, and its two
+    hole fills differ in the last digits (f32 against f64 accumulation), so
+    a reference taken with "whatever is there" would not be one reference."""
+    from satellite_approximation_tpu import native as jax_native
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_native, "get_lib", lambda: None)
+        yield
+
+
+@pytest.fixture
+def native_route(request, monkeypatch):
+    """Both routes of a function that has a C++ twin, as two cases of one
+    parametrised test (``@pytest.mark.parametrize("native_route",
+    NATIVE_ROUTES, indirect=True)``): "native" requires the port's library
+    wherever a compiler is on PATH, so that the case cannot quietly run the
+    Python route; "python" takes the library away."""
+    import shutil
+
+    from satellite_approximation_tpu_torch import native
+
+    if request.param == "python":
+        monkeypatch.setattr(native, "get_lib", lambda: None)
+    elif shutil.which("g++") is not None:
+        assert native.available(), "g++ is on PATH but the native library did not build"
+    return request.param
+
