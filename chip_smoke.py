@@ -7,6 +7,7 @@ its public entry points at the size users run, and certifies the results.
     python3 chip_smoke.py                   # the smoke run
     python3 chip_smoke.py --against DIR     # kernels of the tree in DIR against these
     python3 chip_smoke.py --tile-detect     # detection alone, once at a full 10980^2 tile
+    python3 chip_smoke.py --tile-entry      # the entry points alone, once at a full tile
 
 Phases (each raises on failure, so the run exits non-zero):
 
@@ -60,9 +61,24 @@ Phases (each raises on failure, so the run exits non-zero):
    Mpix, so backend "auto" takes the device stages), cold and warm, with the
    stage table, each stage's route and the peak device memory.
    ``--tile-detect`` runs phases 1 and 8 alone with 8b at 10980^2.
+9. entry points, in process, on the card by default, each with its wall
+   time split into reading, solving or detecting, and writing, and its peak
+   device memory: 9a ``sat-torch-laplace`` on a 2048^2 RGB PNG and a marker
+   PNG of bench.py's mask (the PNG equal to the fill in memory, its f64
+   residual); 9b ``sat-torch-poisson`` on a 6-page 2048^2 f32 TIFF (one
+   5-band output, the closed mask on the card bit-equal to the CPU's, each
+   band's f64 residual <= 1e-6); 9c ``fill_missing_data_folder`` over three
+   date folders of 13 bands at 2048^2 (one over the skip threshold, one
+   without its shadow_mask.tif): files, DB rows, a residual per band, known
+   pixels unchanged, then a second run that solves nothing, ``compute_index``
+   and ``find_good_close_image``; 9d ``sat-torch-cloud-detection`` on
+   ``synthesize(4096)``'s GeoTIFFs (masks equal to ``detect``'s in memory,
+   ``cached`` on a second run). Kernels 1, 2, 4 and 5 must launch in 9a and
+   9c, 1 and 2 in 9b. ``--tile-entry`` runs phases 1, 2 and 9 alone with 9b
+   at 10980^2 and 9c on one date folder of the four 10 m bands at 10980^2.
 
-Each path that a kernel's launch count is read from (phases 4, 6 and 7)
-runs with every count set to 0 just before it.
+Each path that a kernel's launch count is read from (phases 4, 6, 7 and
+9a-9c) runs with every count set to 0 just before it.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -1283,6 +1299,407 @@ def phase_detect(torch, dev, card, big=4096):
         f"{out['warm'][2]:.3f} s, peak {out['warm'][3]:.3f} GiB [{card}]")
 
 
+# ------------------------------------------------------------------ phase 9: entry points
+
+# the 13 bands of a Sentinel-2 L2A date folder, and the four 10 m bands
+S2_BANDS = ("B01", "B02", "B03", "B04", "B05", "B06", "B07", "B08", "B8A", "B09", "B10", "B11",
+            "B12")
+S2_10M_BANDS = ("B02", "B03", "B04", "B08")
+FILL_KERNELS = ("jacobi_zero", "jacobi_corr", "residual_entry", "residual_pair")
+BLEND_KERNELS = ("jacobi_zero", "jacobi_corr")  # poisson mode: no laplace residual
+SKIP_THRESHOLD = 0.5
+DETECT_N = 4096  # 9d: >= 16 Mpix, so backend "auto" runs the device stages
+
+
+@contextlib.contextmanager
+def spans(torch, targets):
+    """Inside the block, each call of a function named in ``targets``
+    ({label: [(module, attribute), ...]}) adds its wall time, the device
+    synchronised at its end, to ``took[label]``, and ``seen[attribute]``
+    lists each call's (args, result). The entry points look their callees
+    up at call time, so wrapping the attribute splits their wall time
+    without an option in the program."""
+    took = dict.fromkeys(targets, 0.0)
+    seen: dict[str, list] = {}
+    saved = []
+    for label, funcs in targets.items():
+        for mod, name in funcs:
+            fn = getattr(mod, name)
+            saved.append((mod, name, fn))
+
+            def timed(*args, _fn=fn, _label=label, _name=name, **kwargs):
+                t0 = time.perf_counter()
+                out = _fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                took[_label] += time.perf_counter() - t0
+                seen.setdefault(_name, []).append((args, out))
+                return out
+
+            setattr(mod, name, timed)
+    try:
+        yield took, seen
+    finally:
+        for mod, name, fn in reversed(saved):
+            setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def entry_run(torch, K):
+    """One run of an entry point, every kernel count set to 0 just before
+    it. On exit ``run`` holds its wall seconds, the peak device memory above
+    what was allocated at its start (GiB) and the kernel launches it made."""
+    run = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    yield run
+    torch.cuda.synchronize()
+    run["wall"] = time.perf_counter() - t0
+    run["peak"] = (torch.cuda.max_memory_allocated() - held) / 2**30
+    run["launches"] = dict(K.launch_counts)
+
+
+def log_entry(part, run, splits, card, need=()):
+    """One part's line: wall, its split, peak memory, launches; raises when
+    a kernel of ``need`` did not launch."""
+    split = ", ".join(f"{k} {v:.3f} s" for k, v in splits.items())
+    launched = {k: v for k, v in run["launches"].items() if v}
+    log(f"[9 entry] {part}: wall {run['wall']:.3f} s ({split}), peak {run['peak']:.3f} GiB, "
+        f"kernel launches {launched} [{card}]")
+    missing = [k for k in need if not run["launches"][k]]
+    if missing:
+        raise AssertionError(f"{part}: kernels never launched: {missing}")
+
+
+def smooth_fields(torch, n, count, seed, dev):
+    """``count`` smooth f32 fields in [0, 1] at n x n (tile_image's, made
+    on the card)."""
+    return np.stack([(tile_image(torch, n, dev, seed + k)[0] / 10000.0).cpu().numpy()
+                     for k in range(count)])
+
+
+def cloud_field(torch, n, dev, seed):
+    """bench.py's cloud field at 2048^2, tile_mask's on the card otherwise."""
+    return make_mask(n, n, seed) if n == H else tile_mask(torch, n, dev, seed).cpu().numpy()
+
+
+def entry_laplace(torch, K, dev, card, work):
+    """9a: ``sat-torch-laplace`` in process on a 2048^2 RGB PNG (bench.py's
+    ``smooth`` scaled to u8) and a marker PNG whose red/green pixels are
+    ``make_mask(2048, 2048)``."""
+    from PIL import Image
+
+    from satellite_approximation_tpu_torch.cli import laplace_main
+    from satellite_approximation_tpu_torch.config import SolverConfig
+    from satellite_approximation_tpu_torch.models import laplace
+
+    base = np.stack([smooth(H, W, 10 + c) for c in range(3)], axis=-1)
+    base = np.clip(np.round(base * 255), 0, 255).astype(np.uint8)
+    invalid = make_mask(H, W)
+    marker = np.zeros((H, W, 3), np.uint8)
+    marker[invalid] = (255, 0, 0)
+    Image.fromarray(base).save(work / "base.png")
+    Image.fromarray(marker).save(work / "marker.png")
+    argv = [str(work / name) for name in ("base.png", "marker.png", "filled.png")]
+    targets = {"read": [(laplace_main, "read_image_raw")], "solve": [(laplace_main, "apply_laplace")]}
+    with spans(torch, targets) as (took, _), entry_run(torch, K) as run:
+        code = laplace_main.main(argv)
+    log_entry(f"9a sat-torch-laplace 3x{H}x{W} PNG", run,
+              {**took, "write": run["wall"] - sum(took.values())}, card, FILL_KERNELS)
+    if code != 0:
+        raise AssertionError(f"9a: exit code {code}")
+
+    written = np.asarray(Image.open(work / "filled.png"))
+    value = laplace.apply_laplace(base.astype(np.float64), marker, device=dev)
+    want = np.clip(value, 0, 255).astype(np.uint8)
+    if not np.array_equal(written, want):
+        raise AssertionError(f"9a: the PNG differs from the fill in memory in "
+                             f"{int((written != want).sum())} values")
+    if not np.array_equal(written[~invalid], base[~invalid]):
+        raise AssertionError("9a: known pixels changed")
+    umask = laplace._laplace_unknowns(invalid)
+    tol = 1e-9 if umask.sum() >= SolverConfig().mg_threshold_pixels else 1e-7
+    rel = rel_residual(torch, np.ascontiguousarray(np.moveaxis(value, -1, 0)),
+                       torch.from_numpy(umask).to(dev),
+                       np.ascontiguousarray(np.moveaxis(base, -1, 0)).astype(np.float64))
+    if not rel <= tol:
+        raise AssertionError(f"9a: f64 residual {rel} > {tol}")
+    log(f"[9 entry] 9a PNG equal to the fill in memory, {umask.mean() * 100:.2f}% filled, f64 "
+        f"residual {rel:.3e} <= {tol}")
+    return run
+
+
+def entry_poisson(torch, K, dev, card, work, n):
+    """9b: ``sat-torch-poisson`` on a 6-page n x n f32 TIFF (5 bands, band 6
+    the cloud field) and a second seeded 5-band TIFF."""
+    from satellite_approximation_tpu_torch.cli import poisson_main
+    from satellite_approximation_tpu_torch.utils.geotiff import GeoTIFF, write_geotiff
+
+    invalid = cloud_field(torch, n, dev, seed=3 if n == H else 5)
+    bands = smooth_fields(torch, n, 5, 20, dev)
+    repl = smooth_fields(torch, n, 5, 40, dev)
+    write_geotiff(np.concatenate([bands, invalid[None].astype(np.float32)]), work / "scene.tif",
+                  compression=None)
+    write_geotiff(repl, work / "replacement.tif", compression=None)
+    targets = {"solve": [(poisson_main, "preprocess_cloud_band"),
+                         (poisson_main, "blend_images_poisson")],
+               "write": [(poisson_main, "write_geotiff")]}
+    with spans(torch, targets) as (took, seen), entry_run(torch, K) as run:
+        code = poisson_main.main([str(work / "scene.tif"), str(work / "replacement.tif")])
+    log_entry(f"9b sat-torch-poisson 5x{n}x{n} TIFF", run,
+              {"read": run["wall"] - sum(took.values()), **took}, card, BLEND_KERNELS)
+    if code != 0:
+        raise AssertionError(f"9b: exit code {code}")
+
+    outs = sorted((work / "poisson_simple_replace").glob("*.tif"))
+    if [p.name for p in outs] != ["scene.tif"]:
+        raise AssertionError(f"9b: outputs {outs}")
+    out = GeoTIFF.open(outs[0])
+    written = out.read_all()
+    result = seen["blend_images_poisson"][0][1]
+    if out.num_bands != 5 or not np.array_equal(written, result.astype(np.float32)):
+        raise AssertionError(f"9b: the output ({out.num_bands} bands) is not the blend's result")
+    mask = seen["preprocess_cloud_band"][0][1]
+    t0 = time.perf_counter()
+    mask_cpu = poisson_main.preprocess_cloud_band(invalid.astype(np.float32), device="cpu")
+    t_cpu = time.perf_counter() - t0
+    if not np.array_equal(mask, mask_cpu):
+        raise AssertionError(f"9b: the closed mask on the card differs from the CPU's in "
+                             f"{int((mask != mask_cpu).sum())} pixels")
+    if not np.array_equal(written[:, ~mask], bands[:, ~mask]):
+        raise AssertionError("9b: known pixels changed")
+    um = torch.from_numpy(mask).to(dev)
+    rels = [rel_residual(torch, result[k : k + 1], um, bands[k : k + 1].astype(np.float64),
+                         guidance=repl[k : k + 1].astype(np.float64)) for k in range(5)]
+    if not max(rels) <= TOL:
+        raise AssertionError(f"9b: f64 residuals {rels} > {TOL}")
+    log(f"[9 entry] 9b one 5-band output equal to the blend's result; closed mask "
+        f"({mask.mean() * 100:.2f}%) bit-equal to the CPU's ({t_cpu:.3f} s there); f64 "
+        f"residuals {', '.join(f'{r:.3e}' for r in rels)} <= {TOL}")
+    return run
+
+
+def entry_folder(torch, K, dev, card, work, n, band_names, dates):
+    """9c: ``fill_missing_data_folder`` over a base folder of date folders
+    ({date: kind}, kind "fill", "over threshold" or "no shadow file") at
+    n x n, then again (nothing to solve), then ``compute_index`` and
+    ``find_good_close_image``."""
+    import satellite_approximation_tpu_torch as port
+    from satellite_approximation_tpu_torch.config import SolverConfig
+    from satellite_approximation_tpu_torch.models import laplace
+    from satellite_approximation_tpu_torch.models.detection.pipeline import Status
+    from satellite_approximation_tpu_torch.utils.dates import Date
+    from satellite_approximation_tpu_torch.utils.db import ApproxMethod, DataBase
+    from satellite_approximation_tpu_torch.utils.geotiff import GeoTIFF, write_geotiff
+
+    base = work / "dates"
+    base.mkdir()
+    values = {}
+    with DataBase(base) as db:
+        for k, (date, kind) in enumerate(dates.items()):
+            folder = base / date
+            folder.mkdir()
+            clouds = cloud_field(torch, n, dev, seed=(3 if n == H else 5) + k)
+            shadows = np.roll(clouds, (n // 180, n // 240), axis=(0, 1)) & ~clouds
+            shadows[[0, -1], :] = shadows[:, [0, -1]] = False
+            write_geotiff(clouds.astype(np.uint8), folder / "cloud_mask.tif", compression=None)
+            if kind != "no shadow file":
+                write_geotiff(shadows.astype(np.uint8), folder / "shadow_mask.tif",
+                              compression=None)
+            for j, band in enumerate(band_names):
+                v = (tile_image(torch, n, dev, 100 * k + j)[0]).to(torch.int32).cpu().numpy()
+                values[date, band] = v.astype(np.uint16)
+                write_geotiff(values[date, band], folder / f"{band}.tif", compression=None)
+            invalid = 0.9 if kind == "over threshold" else float((clouds | shadows).mean())
+            db.write_detection_result(Date.from_string(date), Status(
+                percent_invalid=invalid, clouds_computed=True, shadows_computed=True))
+    solved = [d for d, kind in dates.items() if kind != "over threshold"]
+
+    targets = {"solve": [(laplace, "solve_matrix")], "write": [(laplace, "write_geotiff")]}
+    with spans(torch, targets) as (took, seen), entry_run(torch, K) as run:
+        port.fill_missing_data_folder(base, list(band_names), skip_threshold=SKIP_THRESHOLD)
+    part = f"9c fill_missing_data_folder {len(dates)} dates x {len(band_names)}x{n}x{n}"
+    log_entry(part, run, {"read": run["wall"] - sum(took.values()), **took}, card, FILL_KERNELS)
+
+    with DataBase(base) as db:
+        rows = {d: db.get_approx_status(d, ApproxMethod.Laplace) for d in dates}
+    for date in dates:
+        files = sorted(p.name for p in (base / date / "approximated_data").glob("*.tif"))
+        want = sorted(f"{b}_{i}.tif" for b, i in rows[date].items())
+        expect = set(band_names) if date in solved else set()
+        if set(rows[date]) != expect or files != want:
+            raise AssertionError(f"9c: {date}: DB rows {rows[date]}, files {files}")
+    calls = seen.get("solve_matrix", [])
+    if len(calls) != len(solved):
+        raise AssertionError(f"9c: {len(calls)} solves for the {len(solved)} dates to fill")
+    rels = []
+    for date, (args, (filled, _)) in zip(solved, calls):
+        umask = laplace._laplace_unknowns(args[1])
+        tol = 1e-9 if umask.sum() >= SolverConfig().mg_threshold_pixels else 1e-7
+        um = torch.from_numpy(umask).to(dev)
+        for j, band in enumerate(band_names):
+            src = values[date, band]
+            rel = rel_residual(torch, filled[j : j + 1], um, src[None].astype(np.float64))
+            rels.append(rel)
+            out = GeoTIFF.open(base / date / "approximated_data" / f"{band}_{rows[date][band]}.tif")
+            got = out.read()
+            if not rel <= tol:
+                raise AssertionError(f"9c: {date}/{band}: f64 residual {rel} > {tol}")
+            if not np.array_equal(got, filled[j].astype(np.float32)):
+                raise AssertionError(f"9c: {date}/{band}: the file is not the solve's result")
+            if not np.array_equal(got[~umask], src[~umask].astype(np.float32)):
+                raise AssertionError(f"9c: {date}/{band}: known pixels changed")
+    log(f"[9 entry] 9c {sum(len(r) for r in rows.values())} bands written with their DB rows, "
+        f"dates skipped: {len(dates) - len(solved)}; f64 residuals {min(rels):.3e} .. "
+        f"{max(rels):.3e}; known pixels unchanged")
+
+    with spans(torch, targets) as (took, seen), entry_run(torch, K) as again:
+        port.fill_missing_data_folder(base, list(band_names), skip_threshold=SKIP_THRESHOLD)
+    log_entry(f"{part}, again", again, {"read": again["wall"] - sum(took.values()), **took}, card)
+    with DataBase(base) as db:
+        rows_again = {d: db.get_approx_status(d, ApproxMethod.Laplace) for d in dates}
+    if seen or any(again["launches"].values()) or rows_again != rows:
+        raise AssertionError(f"9c: the second run solved {len(seen.get('solve_matrix', []))} "
+                             f"folders, launched {again['launches']}")
+
+    folder = base / solved[0]
+    present = [p.stem for p in folder.glob("*.tif")]
+    for index in (port.Indices.NDVI, port.Indices.SWI):
+        if port.missing_files(present, index):
+            log(f"[9 entry] 9c {index.value}: needs {port.required_files(index)}, not all here")
+            continue
+        times = []
+        for _ in range(2):  # computed, then read from its cache
+            t0 = time.perf_counter()
+            got = port.compute_index(folder, folder / "B08.tif", index)
+            times.append(time.perf_counter() - t0)
+        if got.shape != (n, n) or not np.isfinite(got).all() or np.abs(got).max() > 1.0:
+            raise AssertionError(f"9c: {index.value} out of range")
+        log(f"[9 entry] 9c compute_index {index.value} {n}x{n}: {times[0]:.3f} s, from its cache "
+            f"{times[1]:.3f} s")
+
+    with DataBase(base) as db:
+        day = list(dates)[len(dates) // 2]
+        t0 = time.perf_counter()
+        best = port.find_good_close_image(day, 0.3, db)
+        dt = time.perf_counter() - t0
+        info = {str(d.date): d.distance(Date.from_string(day), 0.3)
+                for d in db.select_close_images(day)}
+        current = db.select_info_about_date(day).percent_invalid
+        pick = min(info, key=info.get) if info else ""
+        pick_inv = db.select_info_about_date(pick).percent_invalid if pick else None
+    want = "" if not info else (day if current < pick_inv else pick)
+    if best != want:
+        raise AssertionError(f"9c: find_good_close_image({day}) = {best!r}, expected {want!r}")
+    log(f"[9 entry] 9c find_good_close_image({day}, 0.3) = {best!r} in {dt * 1e3:.3f} ms")
+    return run
+
+
+def entry_detect(torch, K, dev, card, work, n):
+    """9d: ``sat-torch-cloud-detection`` on ``synthesize(n)``'s rasters
+    written as GeoTIFFs (georeferenced: the CLI derives the diagonal from
+    B08's geotransform) into a date folder, against ``detect`` called in
+    memory on the same folder; then once more, from its cache."""
+    import io
+    from unittest import mock
+
+    from satellite_approximation_tpu_torch.cli import cloud_detection_main as cli
+    from satellite_approximation_tpu_torch.models.detection.pipeline import (
+        CloudParams, detect, get_diagonal_distance,
+    )
+    from satellite_approximation_tpu_torch.utils.geotiff import GeoTIFF, write_geotiff
+    from satellite_approximation_tpu_torch.utils.profiling import StageTimer
+    from satellite_approximation_tpu_torch.utils.tiffmb import write_multiband_tiff
+
+    scene = synthesize(n)
+    folder = work / "2019-05-22"
+    folder.mkdir()
+    template = work / "template.tif"
+    # the tile's degrees a pixel, so the diagonal scales with n as in phase 8
+    write_multiband_tiff(np.zeros((1, 4, 4), np.uint8), template, extra_tags=[
+        (33550, 12, (1.5 / TILE, 1.0 / TILE, 0.0)),
+        (33922, 12, (0.0, 0.0, 0.0, -114.0, 51.5, 0.0)),
+        (34735, 3, (1, 1, 0, 2, 1024, 0, 1, 2, 2048, 0, 1, 4326))])  # WGS84 geographic
+    for name, raster in scene.items():
+        write_geotiff(raster, folder / f"{name}.tif", template_path=template, compression=None)
+
+    def run_cli(timer):
+        out = io.StringIO()
+        real = cli.detect
+        with mock.patch.object(cli, "detect", lambda *a, **k: real(*a, timer=timer, **k)), \
+                contextlib.redirect_stdout(out):
+            code = cli.main([str(folder)])
+        if code != 0:
+            raise AssertionError(f"9d: exit code {code}")
+        return out.getvalue()
+
+    timer = StageTimer(dev)
+    with entry_run(torch, K) as run:
+        printed = run_cli(timer)
+    read = sum(t for name, t in timer.stages if name.startswith("read"))
+    wait = sum(t for name, t in timer.stages if "write" in name and "(wait)" in name)
+    workers = sum(t for name, t in timer.stages if "write" in name and "(wait)" not in name)
+    log_entry(f"9d sat-torch-cloud-detection {n}x{n}", run,
+              {"read": read, "detect": run["wall"] - read - wait, "write (wait)": wait}, card)
+    log(f"[9 entry] 9d mask writes on workers {workers:.3f} s; printed {printed.strip()!r}")
+    masks = {name: GeoTIFF.open(folder / f"{name}.tif").read() for name in MASK_FILES}
+
+    b08 = GeoTIFF.open(folder / "B08.tif")
+    diag = get_diagonal_distance(b08.west(), b08.south(), b08.east(), b08.north())
+    status = detect(CloudParams.from_root(folder), diag, use_cache=False, device=dev)
+    line = (f"clouds: {status.percent_clouds:.4f}, shadows: {status.percent_shadows:.4f}, "
+            f"invalid: {status.percent_invalid:.4f}\n")
+    for name in MASK_FILES:
+        again = GeoTIFF.open(folder / f"{name}.tif").read()
+        if not np.array_equal(masks[name], again):
+            raise AssertionError(f"9d: {name} differs from detect's in memory")
+    if printed != line or not masks["cloud_mask"].any():
+        raise AssertionError(f"9d: printed {printed!r}, detect in memory gives {line!r}")
+    t0 = time.perf_counter()
+    cached = run_cli(StageTimer(dev))
+    if cached != "cached: outputs already exist\n":
+        raise AssertionError(f"9d: the second run printed {cached!r}")
+    log(f"[9 entry] 9d four masks equal to detect's in memory (diagonal {diag:.3f} km); second "
+        f"run {time.perf_counter() - t0:.3f} s: {cached.strip()!r}")
+    return run
+
+
+def phase_entry_points(torch, K, dev, card, tile=False):
+    """Phase 9: the entry points a user calls, each run in process through
+    its public function, on the card by default: 9a ``sat-torch-laplace``,
+    9b ``sat-torch-poisson``, 9c ``fill_missing_data_folder`` with
+    ``compute_index`` and ``find_good_close_image``, 9d
+    ``sat-torch-cloud-detection``. ``tile``: 9b and 9c alone at 10980^2
+    (9c on one date folder of the four 10 m bands). Returns the kernel
+    launches of 9a-9c, each read just after its run."""
+    import tempfile
+
+    counts = dict.fromkeys(KERNELS, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        for name in ("9a", "9b", "9c", "9d"):
+            (work / name).mkdir()
+        runs = []
+        if tile:
+            runs.append(entry_poisson(torch, K, dev, card, work / "9b", TILE))
+            runs.append(entry_folder(torch, K, dev, card, work / "9c", TILE, S2_10M_BANDS,
+                                     {"2019-05-10": "fill"}))
+        else:
+            runs.append(entry_laplace(torch, K, dev, card, work / "9a"))
+            runs.append(entry_poisson(torch, K, dev, card, work / "9b", H))
+            runs.append(entry_folder(torch, K, dev, card, work / "9c", H, S2_BANDS, {
+                "2019-05-10": "fill", "2019-05-12": "over threshold",
+                "2019-05-14": "no shadow file"}))
+            entry_detect(torch, K, dev, card, work / "9d", DETECT_N)
+    for run in runs:
+        for name, n in run["launches"].items():
+            counts[name] += n
+    log(f"[9 entry] kernel launches on the entry points: { {k: v for k, v in counts.items() if v} }")
+    return counts
+
+
 def load_kernels_of(tree: Path):
     """``ops/stencil_kernels.py`` of the checkout at ``tree``, under a name of
     its own: it builds that checkout's ``csrc/`` into that checkout's
@@ -1443,6 +1860,8 @@ def main() -> int:
                         help="a checkout whose compiled kernels to time against this one's")
     parser.add_argument("--tile-detect", action="store_true",
                         help="phases 1 and 8 alone, 8b at the full 10980^2 tile")
+    parser.add_argument("--tile-entry", action="store_true",
+                        help="phases 1, 2 and 9 alone, 9b and 9c at the full 10980^2 tile")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1461,6 +1880,9 @@ def main() -> int:
         phase_detect(torch, dev, card, big=TILE)
         return 0
     phase_build(K)
+    if args.tile_entry:
+        phase_entry_points(torch, K, dev, card, tile=True)
+        return 0
     if args.against is not None:
         print(json.dumps({"against": phase_against(torch, K, mg, dev, card,
                                                    args.against.resolve())}))
@@ -1472,6 +1894,8 @@ def main() -> int:
     del tile
     counts.update(phase_benchmark_paths(torch, K, dev, card))
     phase_detect(torch, dev, card)
+    for name, n in phase_entry_points(torch, K, dev, card).items():
+        counts[name] = counts.get(name, 0) + n
     missing = [name for name in KERNELS if counts.get(name, 0) == 0]
     if missing:
         raise AssertionError(f"kernels never launched on their paths: {missing}")

@@ -13,11 +13,15 @@ the CUDA device.
 from __future__ import annotations
 
 import functools
+from pathlib import Path
 
 import numpy as np
 
 from ..config import DEFAULT_SOLVER, SolverConfig, check_single_device
 from ..device import resolve_device
+from ..utils.db import ApproxMethod, DataBase
+from ..utils.filesystem import multispectral_folders
+from ..utils.geotiff import GeoTIFF, write_geotiff
 from ..utils.log import create_logger
 from ..utils.perf import Stopwatch
 from . import multigrid
@@ -173,6 +177,78 @@ def find_connected_components(invalid: np.ndarray, min_area: int = 1, device=Non
         rows, cols = np.nonzero(id_map == r.id)
         region_map[r.id] = list(zip(rows.tolist(), cols.tolist()))
     return id_map, region_map
+
+
+def fill_missing_data_folder(
+    base_folder,
+    band_names: list[str],
+    use_cache: bool = True,
+    skip_threshold: float = 1.0,
+    config: SolverConfig = DEFAULT_SOLVER,
+    device=None,
+) -> None:
+    """Laplace-fill every band of every multispectral date folder.
+
+    Implements the reference's commented-out batch loop for real
+    (laplace.cpp:170-244): per date folder, load cloud/shadow masks, skip
+    dates whose invalid fraction exceeds ``skip_threshold``, fill each band
+    not already recorded in the DB, write results to
+    ``<date>/approximated_data/<band>_<id>.tif``, and record completion in
+    the ``approximated_data`` table. All requested bands solve in one
+    batched call (the same mask shares one system) on ``device`` (``None``:
+    the CUDA device, raises without one).
+    """
+    dev = resolve_device(device)
+    base_folder = Path(base_folder)
+    if not base_folder.is_dir():
+        _logger.warning("Could not process: base folder is not a directory (%s)", base_folder)
+        return
+
+    with DataBase(base_folder) as db:
+        for folder in multispectral_folders(base_folder):
+            _logger.debug("Starting folder: %s", folder)
+            out_dir = folder / "approximated_data"
+            out_dir.mkdir(exist_ok=True)
+
+            status = db.get_status(folder.name)
+            if not (status.clouds_exist and status.shadows_exist):
+                _logger.warning(
+                    "Both clouds and shadows don't exist for folder %s. Skipping", folder
+                )
+                continue
+            if status.percent_invalid > skip_threshold:
+                _logger.info(
+                    "Skipping %s because there is too little valid data (%.1f%% invalid)",
+                    folder,
+                    status.percent_invalid * 100.0,
+                )
+                continue
+
+            clouds = GeoTIFF.open(folder / "cloud_mask.tif").read().astype(bool)
+            shadow_path = folder / "shadow_mask.tif"
+            if shadow_path.exists():
+                shadows = GeoTIFF.open(shadow_path).read().astype(bool)
+            else:
+                shadows = np.zeros_like(clouds)
+            mask = clouds | shadows
+
+            existing = db.get_approx_status(folder.name, ApproxMethod.Laplace)
+            todo = [b for b in band_names if not (use_cache and b in existing)]
+            if not todo:
+                continue
+
+            values = np.stack(
+                [GeoTIFF.open(folder / f"{band}.tif").read().astype(np.float64) for band in todo]
+            )
+            filled, _ = solve_matrix(values, mask, config, device=dev)
+            for k, band in enumerate(todo):
+                rid = db.write_approx_results(folder.name, band, ApproxMethod.Laplace)
+                write_geotiff(
+                    filled[k].astype(np.float32),
+                    out_dir / f"{band}_{rid}.tif",
+                    template_path=folder / f"{band}.tif",
+                )
+            _logger.info("Finished folder: %s", folder)
 
 
 def apply_laplace(

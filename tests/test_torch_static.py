@@ -2,10 +2,11 @@
 lint (tests/test_static_analysis.py), no import of jax or of the JAX
 package anywhere in the port, chip_smoke.py or chip_profile.py, no
 ``torch.compile`` (the port's arithmetic is eager ops, rounded one by one),
-and no handler in chip_smoke.py that could catch a failed phase while the
-run goes on."""
+no handler in chip_smoke.py that could catch a failed phase while the run
+goes on, and console scripts of the port that point into the port."""
 
 import ast
+import tomllib
 from pathlib import Path
 
 import pytest
@@ -59,7 +60,10 @@ def test_detection_modules_are_covered():
         "models/detection/cloud_mask.py", "models/detection/shadow_mask.py",
         "models/detection/matching.py", "models/detection/refinement.py",
         "models/detection/refinement_torch.py", "models/detection/evaluation.py",
-        "models/detection/pipeline.py",
+        "models/detection/pipeline.py", "indices.py", "models/closest.py",
+        "utils/imageio.py", "utils/rasterio_.py", "utils/compute.py", "utils/__init__.py",
+        "cli/__init__.py", "cli/laplace_main.py", "cli/poisson_main.py",
+        "cli/cloud_detection_main.py",
     ):
         assert f"satellite_approximation_tpu_torch/{rel}" in have, rel
 
@@ -67,7 +71,7 @@ def test_detection_modules_are_covered():
 def test_chip_smoke_phases_cannot_fail_quietly():
     """Every phase raises on failure and nothing catches it: the script has
     no bare ``except`` and no handler for ``Exception`` / ``BaseException``,
-    and ``main`` runs the detection phase beside the others."""
+    and ``main`` runs the detection and entry-point phases beside the others."""
     path = REPO / "chip_smoke.py"
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -78,4 +82,15 @@ def test_chip_smoke_phases_cannot_fail_quietly():
     main = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "main")
     called = {n.func.id for n in ast.walk(main) if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)}
     assert {"phase_device", "phase_build", "phase_kernels", "phase_main_path", "phase_full_tile",
-            "phase_general_iterate", "phase_benchmark_paths", "phase_detect"} <= called
+            "phase_general_iterate", "phase_benchmark_paths", "phase_detect",
+            "phase_entry_points"} <= called
+
+
+def test_console_scripts_point_into_the_port():
+    scripts = tomllib.loads((REPO / "pyproject.toml").read_text())["project"]["scripts"]
+    ours = {name: target for name, target in scripts.items() if name.startswith("sat-torch-")}
+    assert sorted(ours) == ["sat-torch-cloud-detection", "sat-torch-laplace", "sat-torch-poisson"]
+    for target in ours.values():
+        module, func = target.split(":")
+        assert module.startswith("satellite_approximation_tpu_torch.cli.") and func == "main"
+        assert (REPO / (module.replace(".", "/") + ".py")).exists(), module
