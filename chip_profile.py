@@ -11,6 +11,7 @@ minus the device time over that wall time.
 
     python3 chip_profile.py [--top N]
     python3 chip_profile.py --detect [N] [--top N]
+    python3 chip_profile.py --multi-device [--top N]
 
 ``--detect`` profiles the detection path instead (no hand-written kernel on
 it), at N x N (4096 by default): one warm ``detect`` of
@@ -22,6 +23,14 @@ seconds, the sweeps, and the cells swept as a multiple of the level's size;
 then the matching in its forms (the separability check and the vector
 form of the affine, the general sweep alone, the vector form alone) and the
 LS geometry stage with no writer thread beside it.
+
+``--multi-device`` profiles one ``parallel.sharded_fill`` of the 13-band
+2048^2 system on a (1,4) mesh of four shards on the card (as
+``chip_smoke.py`` phase 10a runs it): its device time, launches and idle
+share, then its wall split by the callees it looks up at call time (the
+solve, the host hierarchy, the uploads, the PCG loop, the replicated tail,
+the f64 residuals); the rest of the wall is the host assembly around the
+solve.
 
 The last line is one JSON object ``{"profile": {...}}``. Without a CUDA
 device the script prints no result and exits non-zero.
@@ -240,6 +249,51 @@ def profile_detect(torch, dev, card, top, n):
     return out
 
 
+def profile_multi_device(torch, dev, card, top):
+    """A warm ``sharded_fill`` of bench.py's system on a (1,4) mesh of
+    ``dev`` shards: the profiler's split, then the wall split by callee."""
+    from satellite_approximation_tpu_torch.parallel import fill as pfill
+    from satellite_approximation_tpu_torch.parallel import mg as pmg
+    from satellite_approximation_tpu_torch.parallel.mesh import spatial_band_mesh
+
+    umask, imgs = cs.bench_images()
+    mesh = spatial_band_mesh(4, shape=(1, 4), devices=[dev] * 4)
+
+    iters = []
+
+    def run():  # returns None: wall_ms times the whole call
+        _, it, rel = pfill.sharded_fill(imgs, umask, mesh, tolerance=cs.FILL_TOL)
+        if rel > cs.FILL_TOL:
+            raise AssertionError(f"sharded fill residual {rel} > {cs.FILL_TOL}")
+        iters.append(it)
+
+    label = f"sharded_fill {cs.BANDS}x{cs.H}x{cs.W} on {mesh} to {cs.FILL_TOL}"
+    out = {"sharded_fill": profile_call(torch, label, run, 1, card, top, wall_runs=3)}
+    targets = {
+        "sharded_mg_solve": [(pfill, "sharded_mg_solve")],
+        "host hierarchy": [(pmg, "build_sharded_hierarchy")],
+        "level and tail uploads": [(pmg, "_levels"), (pmg, "_tail_hierarchies")],
+        "PCG loops": [(pmg, "_pcg")],
+        "replicated tail (in PCG)": [(pmg, "_tail")],
+    }
+    with cs.spans(torch, targets) as (took, seen):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    took = {k: round(v, 6) for k, v in took.items()}
+    took["host assembly and composite (rest)"] = round(wall - took["sharded_mg_solve"], 6)
+    cs.log(f"[profile] {label}: wall {wall:.3f} s, {iters[-1]} iterations, "
+           f"{len(seen.get('_pcg', []))} PCG loops, {len(seen.get('_tail', []))} tail calls, "
+           "synchronised at each callee's end [" + card + "]")
+    for name, sec in took.items():
+        cs.log(f"[profile]   {name:36s} {sec:8.3f} s {sec / wall:6.1%}")
+    out["split_s"] = took
+    out["split_wall_s"] = wall
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -247,6 +301,8 @@ def main() -> int:
     parser.add_argument("--top", type=int, default=12, help="kernels listed per call")
     parser.add_argument("--detect", type=int, nargs="?", const=4096, default=None, metavar="N",
                         help="profile the detection path at N x N instead of the fill")
+    parser.add_argument("--multi-device", action="store_true",
+                        help="profile the sharded fill on four shards of the card instead")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device (torch.cuda.is_available() is False)",
@@ -264,6 +320,10 @@ def main() -> int:
                                       **profile_detect(torch, dev, card, args.top, args.detect)}}))
         return 0
     cs.phase_build(K)
+    if args.multi_device:
+        print(json.dumps({"profile": {"card": card,
+                                      **profile_multi_device(torch, dev, card, args.top)}}))
+        return 0
     out = {"card": card}
 
     umask, imgs = cs.bench_images()

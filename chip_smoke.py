@@ -76,11 +76,25 @@ Phases (each raises on failure, so the run exits non-zero):
    ``cached`` on a second run). Kernels 1, 2, 4 and 5 must launch in 9a and
    9c, 1 and 2 in 9b. ``--tile-entry`` runs phases 1, 2 and 9 alone with 9b
    at 10980^2 and 9c on one date folder of the four 10 m bands at 10980^2.
+10. multi-device: ``parallel/`` on a single-process mesh of four shards, on
+   four cards where the host has them, else all four on the one card. 10a
+   ``sharded_fill`` and the public fill routed through an explicit mesh, on
+   bench.py's 13-band 2048^2 system on (1,4), (2,2) and (1,2,2) meshes, to
+   the public fill's 1e-9: each within 1e-5 of the single-device fill, its
+   f64 residual re-evaluated, kernels 1 and 2 launched (they run the
+   replicated tail of the sharded V-cycle); 10b one 10980^2 band on (1,4);
+   10c the sharded blur (4096^2) and pit fill (1024^2) bit-equal to the
+   unsharded ones; 10d ``detect(mesh=...)`` on ``synthesize(4096)`` over a
+   flat mesh, its four masks and status equal to the unsharded run, the
+   sweep, beta, alpha, histograms and final sampling routed sharded; 10e
+   ``parallel.dryrun_multichip(4)``. Each part prints its wall time,
+   iterations and the peak memory of each device.
 
-Each path that a kernel's launch count is read from (phases 4, 6, 7 and
-9a-9c) runs with every count set to 0 just before it.
+Each path that a kernel's launch count is read from (phases 4, 6, 7, 9a-9c
+and 10a) runs with every count set to 0 just before it.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
+After the phases the script prints three lines: ``{"kernels": [...]}``, the
+card's name and power limit as nvidia-smi gives them, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside it, the script prints no result and exits non-zero.
 
@@ -118,6 +132,7 @@ H = W = 2048
 BANDS = 13
 TILE = 10980
 TOL = 1e-6
+FILL_TOL = 1e-9  # the public fill's tolerance with multigrid (laplace.solve_matrix)
 PALLAS = "satellite_approximation_tpu/ops/pallas_kernels.py"
 CSRC = "satellite_approximation_tpu_torch/csrc"
 KERNELS = {
@@ -1132,13 +1147,13 @@ def synthesize(n: int, seed: int = 7):
 MASK_FILES = ("cloud_mask", "potential_shadows", "object_based_shadows", "shadow_mask")
 
 
-def run_detect(torch, dev, scene, n, backends, label, card):
+def run_detect(torch, dev, scene, n, backends, label, card, mesh="auto", tag="8 detect"):
     """One ``detect`` of ``scene`` on the card, from pre-decoded rasters to
     the four mask files in a temporary directory: (status, masks read back
     from the files, StageTimer, seconds, peak GiB). The peak is the most the
     call held above what was allocated before it (earlier phases leave their
     cached hierarchies on the card). ``backends``: (refinement, matching)
-    backend values."""
+    backend values; ``mesh``: detect's mesh setting; ``tag``: the log prefix."""
     import dataclasses
     import tempfile
 
@@ -1166,7 +1181,7 @@ def run_detect(torch, dev, scene, n, backends, label, card):
         held = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         status = detect(params, diag, use_cache=False, config=config, timer=timer,
-                        inputs=dict(scene), device=dev)
+                        inputs=dict(scene), mesh=mesh, device=dev)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         peak = (torch.cuda.max_memory_allocated() - held) / 2**30
@@ -1182,23 +1197,23 @@ def run_detect(torch, dev, scene, n, backends, label, card):
     if not (masks["cloud_mask"].any() and masks["object_based_shadows"].any()
             and status.percent_shadows > 0 and matched):
         raise AssertionError(f"{label}: trivial scene (status {status})")
-    log(f"[8 detect] {label}: {n}x{n} in {dt:.3f} s, peak {peak:.3f} GiB, clouds "
+    log(f"[{tag}] {label}: {n}x{n} in {dt:.3f} s, peak {peak:.3f} GiB, clouds "
         f"{status.percent_clouds:.6f} shadows {status.percent_shadows:.6f} invalid "
         f"{status.percent_invalid:.6f}, object-shadow pixels "
         f"{int(masks['object_based_shadows'].sum())} [{card}]")
     for stage, route in timer.routes.items():
-        log(f"[8 detect]   route of {stage}: {route}")
+        log(f"[{tag}]   route of {stage}: {route}")
     return status, masks, timer, dt, peak
 
 
-def log_stages(timer, label):
+def log_stages(timer, label, tag="8 detect"):
     """The StageTimer table, the per-bucket matching stages summed."""
     rows: dict[str, float] = {}
     for name, t in timer.stages:
         key = name.split(" ")[0] + " (all buckets)" if name.startswith(
             ("matching/sweep", "matching/detail")) else name
         rows[key] = rows.get(key, 0.0) + t
-    log(f"[8 detect]   stages of {label}: " + "; ".join(f"{k} {v:.3f}" for k, v in rows.items()))
+    log(f"[{tag}]   stages of {label}: " + "; ".join(f"{k} {v:.3f}" for k, v in rows.items()))
 
 
 def _iou(a, b):
@@ -1700,6 +1715,177 @@ def phase_entry_points(torch, K, dev, card, tile=False):
     return counts
 
 
+# ------------------------------------------------------------------ phase 10: multi-device
+
+
+def reset_peaks(torch, devices):
+    for d in dict.fromkeys(devices):
+        torch.cuda.reset_peak_memory_stats(d)
+
+
+def peaks(torch, devices):
+    """GiB at peak on each distinct device since its last reset."""
+    return {str(d): round(torch.cuda.max_memory_allocated(d) / 2**30, 3)
+            for d in dict.fromkeys(devices)}
+
+
+def phase_multi_device(torch, K, dev, card):
+    """Phase 10: ``parallel/`` on a single-process mesh of four shards (on
+    four cards where the host has them, else all on ``dev``). 10a
+    ``sharded_fill`` and the public fill routed through an explicit mesh on
+    bench.py's 13-band 2048^2 system on (1,4), (2,2) and (1,2,2) meshes,
+    each within 1e-5 of the single-device fill and certified in f64; 10b one
+    10980^2 band on (1,4); 10c the sharded blur and pit fill bit-equal to
+    the unsharded ones; 10d ``detect(mesh=...)`` on ``synthesize(4096)``,
+    its four masks bit-equal to the unsharded run; 10e
+    ``dryrun_multichip(4)``. Returns the launches of kernels 1 and 2 in 10a
+    (counts zeroed just before it)."""
+    import satellite_approximation_tpu_torch as port
+    from satellite_approximation_tpu_torch.config import SolverConfig
+    from satellite_approximation_tpu_torch.models import fill
+    from satellite_approximation_tpu_torch.ops.blur import gaussian_blur
+    from satellite_approximation_tpu_torch.ops.pitfill import pit_fill
+    from satellite_approximation_tpu_torch.parallel import dryrun_multichip, sharded_fill
+    from satellite_approximation_tpu_torch.parallel.fill import chunk_bands
+    from satellite_approximation_tpu_torch.parallel.mesh import (
+        make_mesh, spatial_band_mesh, spatial_mesh_2d, spread_devices,
+    )
+    from satellite_approximation_tpu_torch.parallel.stencils import (
+        sharded_gaussian_blur, sharded_pit_fill,
+    )
+
+    t_phase = time.perf_counter()
+    devices = spread_devices(4, dev)
+    log(f"[10 multi] {torch.cuda.device_count()} card(s) visible: four shards on "
+        f"{sorted(set(map(str, devices)))} [{card}]")
+
+    def timed(fn):
+        reset_peaks(torch, devices)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, peaks(torch, devices)
+
+    # ---- 10a: the bench system on three meshes, to the public fill's 1e-9
+    # (two solutions certified at 1e-6 may differ by more than 1e-5)
+    umask, imgs = bench_images()
+    um_t = torch.from_numpy(umask).to(dev)
+    ref, dt, pk = timed(lambda: fill.laplace_fill(imgs, umask, tolerance=FILL_TOL,
+                                                  refinement_steps=4, device=dev))
+    ref_x = ref.x.to(torch.float64)
+    log(f"[10a] one device: laplace_fill {BANDS}x{H}x{W} to {FILL_TOL}: {dt:.3f} s, "
+        f"{ref.iterations} iterations, peak {pk} GiB")
+    pub_ref, dt, _ = timed(lambda: port.fill_missing_portion_smooth_boundary(
+        imgs, umask, config=SolverConfig(mesh=None, mg_threshold_pixels=0), device=dev))
+    log(f"[10a] one device: the public fill (to {FILL_TOL}): {dt:.3f} s")
+    meshes = (("1-D (1,4)", spatial_band_mesh(4, shape=(1, 4), devices=devices)),
+              ("1-D (2,2)", spatial_band_mesh(4, shape=(2, 2), devices=devices)),
+              ("2-D (1,2,2)", spatial_mesh_2d(4, shape=(1, 2, 2), devices=devices)))
+    K.reset_launch_counts()
+    for label, mesh in meshes:
+        (out, iters, rel), dt, pk = timed(lambda mesh=mesh: sharded_fill(imgs, umask, mesh,
+                                                                        tolerance=FILL_TOL))
+        out = out.to(dev)
+        diff = float((out - ref_x).abs().max())
+        rel64 = rel_residual(torch, out, um_t, imgs)
+        if not (tuple(out.shape) == imgs.shape and bool(torch.isfinite(out).all())
+                and diff <= 1e-5 and rel <= FILL_TOL and rel64 <= FILL_TOL):
+            raise AssertionError(f"10a {label}: |d| {diff}, certified {rel}, f64 residual {rel64}")
+        if not torch.equal(out[:, ~um_t], torch.from_numpy(imgs).to(dev)[:, ~um_t]):
+            raise AssertionError(f"10a {label}: known pixels changed")
+        log(f"[10a] sharded_fill on {label} {mesh}: {dt:.3f} s, {iters} iterations, certified "
+            f"{rel:.3e}, f64 residual {rel64:.3e}, max|d| against one device {diff:.2e}, "
+            f"peak {pk} GiB [{card}]")
+        got, dt, pk = timed(lambda mesh=mesh: port.fill_missing_portion_smooth_boundary(
+            imgs, umask, config=SolverConfig(mesh=mesh, mg_threshold_pixels=0), device=dev))
+        diff = float(np.abs(got - pub_ref).max())
+        rel64 = rel_residual(torch, got, um_t, imgs)
+        if not (np.isfinite(got).all() and diff <= 1e-5 and rel64 <= FILL_TOL):
+            raise AssertionError(f"10a public fill {label}: |d| {diff}, f64 residual {rel64}")
+        log(f"[10a] public fill routed through {label}: {dt:.3f} s, f64 residual {rel64:.3e}, "
+            f"max|d| against one device {diff:.2e}, peak {pk} GiB")
+    counts = {k: K.launch_counts[k] for k in ("jacobi_zero", "jacobi_corr")}
+    log(f"[10a] kernel launches in 10a: {counts}")
+    if not all(counts.values()):
+        raise AssertionError(f"10a: kernels 1 and 2 never launched: {counts}")
+
+    # ---- 10b: one full-tile band on (1,4), to 1e-9 as in 10a
+    m = tile_mask(torch, TILE, dev)
+    img = tile_image(torch, TILE, dev)
+    one, dt1, pk1 = timed(lambda: fill.laplace_fill(img, m, tolerance=FILL_TOL,
+                                                    refinement_steps=4, device=dev))
+    mesh = meshes[0][1]
+    m_np, img_np = m.cpu().numpy(), img.cpu().numpy()
+    (out, iters, rel), dt, pk = timed(lambda: sharded_fill(img_np, m_np, mesh,
+                                                          tolerance=FILL_TOL))
+    out = out.to(dev)
+    # relative to the band's range: the single-device result is f32 at
+    # values to 1e4
+    diff = float((out - one.x.to(torch.float64)).abs().max()) / float(img.abs().max())
+    rel64 = rel_residual(torch, out, m, img)
+    if not (bool(torch.isfinite(out).all()) and diff <= 1e-5 and rel <= FILL_TOL
+            and rel64 <= FILL_TOL):
+        raise AssertionError(f"10b: |d| {diff}, certified {rel}, f64 residual {rel64}")
+    log(f"[10b] one device: laplace_fill 1x{TILE}x{TILE} to {FILL_TOL}: {dt1:.3f} s, "
+        f"{one.iterations} iterations, peak {pk1} GiB")
+    log(f"[10b] sharded_fill 1x{TILE}x{TILE} on (1,4) {mesh}: {dt:.3f} s, {iters} iterations, "
+        f"certified {rel:.3e}, f64 residual {rel64:.3e}, max|d| against one device "
+        f"{diff:.2e} of the band's range, peak {pk} GiB [{card}]")
+    log(f"[10b] a {BANDS}-band {TILE}^2 tile on (1,4) would solve in chunks of "
+        f"{chunk_bands(mesh, BANDS, TILE, TILE)} band(s) (this card's free memory)")
+    del m, img, one, out, m_np, img_np
+
+    # ---- 10c: the sharded stencils, bit-equal
+    rows = make_mesh((4,), ("x",), devices)
+    g = torch.Generator(device=dev).manual_seed(10)
+    x = torch.rand((4096, 4096), generator=g, device=dev)
+    got, dt, _ = timed(lambda: sharded_gaussian_blur(x, 4.0, rows))
+    want, dt1, _ = timed(lambda: gaussian_blur(x, 4.0))
+    if not torch.equal(got.to(dev), want):
+        raise AssertionError("10c: the sharded blur differs from the unsharded one")
+    log(f"[10c] sharded_gaussian_blur 4096x4096 sigma 4 on {rows}: {dt:.3f} s (one device "
+        f"{dt1:.3f} s), bit-equal")
+    x = torch.rand((1024, 1024), generator=g, device=dev)
+    x[300:500, 300:500] -= 0.5  # a deep pit across a shard boundary
+    got, dt, _ = timed(lambda: sharded_pit_fill(x, 0.3, rows))
+    want, dt1, _ = timed(lambda: pit_fill(x, 0.3))
+    if not torch.equal(got.to(dev), want):
+        raise AssertionError("10c: the sharded pit fill differs from the unsharded one")
+    log(f"[10c] sharded_pit_fill 1024x1024 on {rows}: {dt:.3f} s (one device, its pyramid "
+        f"schedule, {dt1:.3f} s), bit-equal")
+
+    # ---- 10d: detect through a flat mesh
+    n = DETECT_N
+    scene = synthesize(n)
+    flat = make_mesh((4,), ("d",), devices)
+    one = run_detect(torch, dev, scene, n, ("auto", "auto"), "10d one device", card, mesh=None,
+                     tag="10d")
+    shd = run_detect(torch, dev, scene, n, ("auto", "auto"), f"10d sharded on {flat}", card,
+                     mesh=flat, tag="10d")
+    log_stages(one[2], "10d one device", tag="10d")
+    log_stages(shd[2], "10d sharded", tag="10d")
+    for name in MASK_FILES:
+        if not np.array_equal(one[1][name], shd[1][name]):
+            raise AssertionError(f"10d: {name} differs between the sharded and unsharded runs")
+    if one[0] != shd[0]:
+        raise AssertionError(f"10d: statuses differ: {one[0]} against {shd[0]}")
+    unsharded = [k for k in ("matching", "beta map", "alpha, histograms, final sampling")
+                 if "sharded over 4 shards" not in shd[2].routes.get(k, "")]
+    if unsharded:
+        raise AssertionError(f"10d: stages not sharded: {unsharded} ({shd[2].routes})")
+    log(f"[10d] detect {n}x{n}: four masks bit-equal, one device {one[3]:.3f} s, sharded "
+        f"{shd[3]:.3f} s, peak {shd[4]:.3f} GiB [{card}]")
+
+    # ---- 10e: the dry run
+    out, dt, pk = timed(lambda: dryrun_multichip(4, device=dev, log=lambda s: log(f"[10e] {s}")))
+    log(f"[10e] dryrun_multichip(4) on {out['mesh']}: {dt:.3f} s, MG iterations "
+        f"{out['fill_iterations']} to {out['fill_residual']:.3e}, 2-D iterations "
+        f"{out.get('iterations_2d')}, peak {pk} GiB")
+    log(f"[10 multi] phase 10 in {time.perf_counter() - t_phase:.3f} s [{card}]")
+    return counts
+
+
 def load_kernels_of(tree: Path):
     """``ops/stencil_kernels.py`` of the checkout at ``tree``, under a name of
     its own: it builds that checkout's ``csrc/`` into that checkout's
@@ -1895,6 +2081,8 @@ def main() -> int:
     counts.update(phase_benchmark_paths(torch, K, dev, card))
     phase_detect(torch, dev, card)
     for name, n in phase_entry_points(torch, K, dev, card).items():
+        counts[name] = counts.get(name, 0) + n
+    for name, n in phase_multi_device(torch, K, dev, card).items():
         counts[name] = counts.get(name, 0) + n
     missing = [name for name in KERNELS if counts.get(name, 0) == 0]
     if missing:

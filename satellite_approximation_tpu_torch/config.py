@@ -11,8 +11,6 @@ from __future__ import annotations
 
 import dataclasses
 
-import torch
-
 # full-tile-class gate shared by the pipeline stages: scenes at/above this
 # pixel count route through the big-raster policies (host-native shadow
 # stage, chunked LS, native histograms/sampling)
@@ -132,22 +130,14 @@ class SolverConfig:
     # (every u8/u16-derived raster); "force": always, rounding inputs to f32;
     # "never": host-assembled f64 right-hand side.
     device_assembly: str = "auto"
-    # Multi-device routing. The port runs one device: None, "off" or "auto"
-    # solve on the resolved device. Sharded fills are slice D of the port.
+    # Multi-device routing of multigrid-scale solves (parallel/fill.sharded_fill):
+    # a parallel.ShardMesh shards over its shards (several may share a device;
+    # parallel.auto_fill_mesh builds one over every visible card); "auto",
+    # None or "off" solve on one device. Anything else raises ValueError
+    # (parallel/mesh.resolve_mesh).
     mesh: object = "auto"
 
 
 DEFAULT_DETECTION = DetectionConfig()
 DEFAULT_SOLVER = SolverConfig()
 
-
-def check_single_device(mesh, device: torch.device) -> None:
-    """``None``, ``"off"`` and ``"auto"`` run on the one resolved ``device``,
-    whatever the host holds; an explicit multi-device mesh raises
-    ``NotImplementedError``: sharded runs are slice D of the port."""
-    if mesh is None or mesh == "off" or mesh == "auto":
-        return
-    raise NotImplementedError(
-        f"mesh={mesh!r} asks for a multi-device run, which is slice D of the PyTorch port "
-        "(torch.distributed) and not ported yet; use mesh='auto' or None to run on one device"
-    )

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ... import native
-from ...config import BIG_SCENE_PIXELS, DEFAULT_DETECTION, DetectionConfig, check_single_device
+from ...config import BIG_SCENE_PIXELS, DEFAULT_DETECTION, DetectionConfig
 from ...device import as_tensor, divide, resolve_device
 from ...ops import geometry
 from ...ops.masks import fetch_mask
@@ -203,15 +203,21 @@ def detect(
     with the current date's compute (the reference decodes every raster on
     the critical path, automatic_detection.cpp:286-324).
 
-    ``mesh``: "auto" (default) and None run on the one resolved device;
-    anything else asks for a sharded run, which is slice D of the port, and
-    raises ``NotImplementedError``.
+    ``mesh``: where the device stages run (``parallel.mesh.resolve_mesh``):
+    "auto" (default), None and "off" keep them on ``device``; a
+    ``parallel.ShardMesh`` shards them over its shards (the sweep over
+    heights, beta over shadows, alpha, the histograms and the final mask
+    over rows), bit-equal to the unsharded stages. Only the device-stage
+    route (``device_stages`` below) shards. Anything else raises
+    ``ValueError``.
 
     ``device``: ``None`` is the CUDA device (raises without one); ``"cpu"``
     runs the same stages on the CPU.
     """
+    from ...parallel.mesh import resolve_mesh
+
     dev = resolve_device(device)
-    check_single_device(mesh, dev)
+    mesh = resolve_mesh(mesh)
     if use_cache and params.cloud_path().exists() and params.shadow_path().exists():
         _logger.debug(
             "Skipping %s because both the clouds and the shadows have been computed",
@@ -243,6 +249,8 @@ def detect(
         device_stages = config.refinement.backend == "torch" or (
             config.refinement.backend == "auto" and big_scene and dev.type == "cuda"
         )
+        # the device stages shard over the mesh, when there is one
+        det_mesh = mesh if device_stages else None
         host_shadow = big_scene and not device_stages and native.available()
         if host_shadow:
             # host f32 division of u16 values equals the device
@@ -255,11 +263,12 @@ def detect(
             nir = _read_normalized_u8(params.nir_path, np.iinfo(np.uint16).max, inputs, dev)
     shape = tuple(clp.shape)
     on_dev = f"device ({dev})"
+    sharded = None if det_mesh is None else f"device, sharded over {det_mesh.size} shards"
     timer.routes.update({
         "cloud mask": on_dev,
         "shadow stage": "host, native priority flood" if host_shadow else on_dev,
         "sun/view geometry": on_dev if device_stages else "host, chunked numpy",
-        "beta map": on_dev if device_stages else "host, numpy/scipy",
+        "beta map": sharded or (on_dev if device_stages else "host, numpy/scipy"),
     })
 
     _logger.debug(" --- Cloud Detection...")
@@ -372,6 +381,14 @@ def detect(
 
         _logger.debug(" --- Object-based Shadow Mask Generation...")
         with timer.stage("cloud-shadow matching"):
+            # with a mesh the similarity sweep splits its heights over the
+            # shards (bit-equal per (height, cloud) cell); the rest of the
+            # matching is shared
+            sweep_fn = None
+            if det_mesh is not None:
+                from ...parallel import detect as parallel_detect
+
+                sweep_fn = parallel_detect.sharded_sweep(det_mesh)
             match = matching.match_clouds_shadows(
                 clouds,
                 cloud_map,
@@ -382,8 +399,11 @@ def detect(
                 view_pos,
                 config.matching,
                 timer=timer,
+                sweep_fn=sweep_fn,
                 device=dev,
             )
+            if det_mesh is not None:
+                timer.routes["matching"] += f", sharded over {det_mesh.size} shards"
 
         # object-based shadow mask is final after matching — write it while
         # the refinement stages compute
@@ -402,10 +422,18 @@ def detect(
         dev_refine = device_stages or (
             backend == "auto" and isinstance(psm.difference_of_pitfill_nir, torch.Tensor)
         )
-        timer.routes["alpha, histograms, final sampling"] = (
+        timer.routes["alpha, histograms, final sampling"] = sharded or (
             on_dev if dev_refine else "host, numpy or native")
+        alpha_rows = None
         with timer.stage("alpha map"):
-            if dev_refine:
+            if det_mesh is not None:
+                # row shards, padded: the sharded stages below chain on them
+                alpha, alpha_rows = parallel_detect.sharded_alpha_map(
+                    psm.difference_of_pitfill_nir, det_mesh,
+                    config.refinement.alpha_a, config.refinement.alpha_b,
+                    padded_output=True,
+                )
+            elif dev_refine:
                 # stays a tensor: its only consumers are device stages
                 alpha = refinement_torch.alpha_map(
                     psm.difference_of_pitfill_nir,
@@ -416,7 +444,18 @@ def detect(
             else:
                 alpha = refinement.alpha_map(psm.difference_of_pitfill_nir, config.refinement)
         with timer.stage("beta map"):
-            if device_stages:
+            if det_mesh is not None:
+                # the shadows split over the shards, an exact maximum merges
+                beta = parallel_detect.sharded_beta_map(
+                    match.shadows,
+                    match.solutions,
+                    generated.blended_cloud_probability,
+                    diagonal_distance,
+                    det_mesh,
+                    config.refinement,
+                    device_output=True,
+                )
+            elif device_stages:
                 beta = refinement_torch.beta_map(
                     match.shadows,
                     match.solutions,
@@ -437,7 +476,13 @@ def detect(
                 if dev_refine:
                     beta = as_tensor(beta, dev)  # upload once; surface + sampling reuse
         with timer.stage("probability surface"):
-            if dev_refine:
+            if det_mesh is not None:
+                # row-sharded histograms, merged by exact int32 sums
+                surface = parallel_detect.sharded_probability_map(
+                    match.shadow_mask, alpha, beta, det_mesh, config.refinement,
+                    rows=alpha_rows,
+                )
+            elif dev_refine:
                 surface = refinement_torch.probability_map(
                     match.shadow_mask, alpha, beta, config.refinement, device=dev
                 )
@@ -448,7 +493,21 @@ def detect(
 
         _logger.debug(" --- Final Shadow Mask Generation...")
         with timer.stage("final mask"):
-            if dev_refine:
+            if det_mesh is not None:
+                final = parallel_detect.sharded_improved_shadow_mask(
+                    match.shadow_mask,
+                    generated.cloud_mask,
+                    alpha,
+                    beta,
+                    surface,
+                    config.probability_threshold,
+                    det_mesh,
+                    device_output=all_device,
+                    rows=alpha_rows,
+                )
+                if isinstance(final, torch.Tensor):
+                    final = final.to(dev)
+            elif dev_refine:
                 final = refinement_torch.improved_shadow_mask(
                     match.shadow_mask,
                     generated.cloud_mask,

@@ -17,7 +17,7 @@ from pathlib import Path
 
 import numpy as np
 
-from ..config import DEFAULT_SOLVER, SolverConfig, check_single_device
+from ..config import DEFAULT_SOLVER, SolverConfig
 from ..device import resolve_device
 from ..utils.db import ApproxMethod, DataBase
 from ..utils.filesystem import multispectral_folders
@@ -81,8 +81,21 @@ def solve_matrix(
 
     n = int(umask.sum())
     use_mg = config.use_multigrid and n >= config.mg_threshold_pixels
+    # multi-device route (SolverConfig.mesh): multigrid-scale solves shard
+    # over the mesh's shards, bands over 'b', rows over 'x' with halo
+    # exchange (parallel/fill.sharded_fill)
     if use_mg:
-        check_single_device(config.mesh, dev)
+        from ..parallel.mesh import resolve_mesh
+
+        mesh = resolve_mesh(config.mesh)
+        if mesh is not None:
+            from ..parallel.fill import sharded_fill
+
+            filled_t, iters, rel = sharded_fill(images, umask, mesh, tolerance=1e-9)
+            filled = filled_t.cpu().numpy()
+            out = filled[0] if squeeze else filled
+            # result.x keeps the f64 tensor on the mesh's first device
+            return out, CGResult(filled_t, iters, rel)
 
     # device path: when the f64 input is exactly representable in f32 (every
     # u8/u16-derived raster), upload f32 and fetch back only the n solved

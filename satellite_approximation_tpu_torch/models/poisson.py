@@ -20,7 +20,7 @@ from pathlib import Path
 
 import numpy as np
 
-from ..config import DEFAULT_SOLVER, SolverConfig, check_single_device
+from ..config import DEFAULT_SOLVER, SolverConfig
 from ..device import resolve_device
 from ..utils.log import create_logger
 from ..utils.perf import PerfInfo
@@ -85,10 +85,30 @@ def _solve(
 
     max_iters = max_iterations if max_iterations is not None else max(n_unknowns // 2, 1)
     use_mg = config.use_multigrid and n_unknowns >= config.mg_threshold_pixels
-    if use_mg:
-        check_single_device(config.mesh, device)
 
     start = time.perf_counter()
+    # multi-device route (SolverConfig.mesh, see laplace.solve_matrix): the
+    # Poisson-editing system, its guidance right-hand side and warm start
+    # assembled by parallel/fill.sharded_fill
+    if use_mg:
+        from ..parallel.mesh import resolve_mesh
+
+        mesh = resolve_mesh(config.mesh)
+        if mesh is not None:
+            from ..parallel.fill import sharded_fill
+
+            filled_t, iters, rel = sharded_fill(inputs, umask, mesh, replacement=replacement,
+                                                tolerance=tolerance)
+            out = filled_t.cpu().numpy()
+            solve_ms = (time.perf_counter() - start) * 1e3
+            _logger.debug("Sharded solution after %d iterations with %.4e error", iters, rel)
+            if perf_path is not None:
+                PerfInfo(
+                    region_size=n_unknowns, tolerance=tolerance, max_iterations=max_iters,
+                    iterations=iters, error=rel, solve_time=solve_ms,
+                ).write(perf_path)
+            return out
+
     # device path (see laplace.solve_matrix): f32 uploads, guidance RHS
     # assembled on the device, only the n solved values come back
     inp32 = np.asarray(inputs, np.float32)

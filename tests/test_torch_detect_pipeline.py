@@ -183,19 +183,32 @@ class TestDetectEdges:
         assert all(np.array_equal(masks[n], want_masks[n]) for n in MASKS)
 
     def test_mesh_policy(self, scene, tmp_path, monkeypatch):
-        """"auto" and None run on one device however many the host has; an
-        explicit mesh names slice D."""
+        """"auto" and None run on one device however many cards the host has;
+        an explicit ShardMesh shards the device stages, bit-equal; an unknown
+        setting raises ValueError."""
+        from satellite_approximation_tpu_torch.parallel.mesh import make_mesh
+
         monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
         params = t_pipe.CloudParams.from_root(tmp_path)
-        with pytest.raises(NotImplementedError, match="slice D"):
-            t_pipe.detect(params, DIAG, inputs=dict(scene), mesh=object(), device="cpu")
-        with pytest.raises(NotImplementedError, match="slice D"):
-            t_pipe.detect(params, DIAG, inputs=dict(scene), mesh=("d", 2), device="cpu")
+        for bad in (object(), ("d", 2)):
+            with pytest.raises(ValueError, match="unknown mesh setting"):
+                t_pipe.detect(params, DIAG, inputs=dict(scene), mesh=bad, device="cpu")
         small = mini_scene(64)
         for mesh in ("auto", None):
             status, _ = run(t_pipe, t_geotiff, tmp_path / f"m{mesh}", small,
                             t_config.DEFAULT_DETECTION, mesh=mesh, device="cpu")
             assert status.clouds_computed
+        cfg = detection_config(t_config, "torch", "torch")
+        mesh = make_mesh((3,), ("d",), "cpu")
+        timer = profiling.StageTimer(torch.device("cpu"))
+        status, masks = run(t_pipe, t_geotiff, tmp_path / "sharded", scene, cfg, mesh=mesh,
+                            timer=timer, device="cpu")
+        assert timer.routes["beta map"] == "device, sharded over 3 shards"
+        assert timer.routes["matching"].endswith("sharded over 3 shards")
+        want, want_masks = run(t_pipe, t_geotiff, tmp_path / "single", scene, cfg, mesh=None,
+                               device="cpu")
+        assert dataclasses.asdict(status) == dataclasses.asdict(want)
+        assert all(np.array_equal(masks[n], want_masks[n]) for n in MASKS)
 
     def test_device_none_needs_cuda(self, scene, tmp_path, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

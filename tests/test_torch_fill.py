@@ -18,7 +18,7 @@ from satellite_approximation_tpu.models import laplace as JL
 from satellite_approximation_tpu.models import multigrid as JM
 from satellite_approximation_tpu.models import poisson as JP
 import satellite_approximation_tpu_torch as port
-from satellite_approximation_tpu_torch.config import SolverConfig, check_single_device
+from satellite_approximation_tpu_torch.config import SolverConfig
 from satellite_approximation_tpu_torch.device import resolve_device
 from satellite_approximation_tpu_torch.models import cg as PC
 from satellite_approximation_tpu_torch.models import fill as PF
@@ -243,16 +243,41 @@ class TestDevice:
             PF.laplace_fill(np.ones((24, 24)), m)
 
     def test_multi_device_mesh_names_slice_d(self, monkeypatch):
-        check_single_device("off", torch.device("cuda"))
-        check_single_device(None, torch.device("cuda"))
-        check_single_device("auto", torch.device("cpu"))
-        with pytest.raises(NotImplementedError, match="slice D"):
-            check_single_device(object(), torch.device("cpu"))
+        """The fill's mesh policy (``parallel.mesh.resolve_mesh``): None, "off"
+        and "auto" solve on one device however many cards the host has, an
+        explicit ShardMesh routes the public fill sharded, anything else
+        raises ValueError."""
+        from satellite_approximation_tpu_torch.parallel import fill as pfill
+        from satellite_approximation_tpu_torch.parallel.mesh import (
+            resolve_mesh,
+            spatial_band_mesh,
+        )
+
+        with pytest.raises(ValueError, match="unknown mesh setting"):
+            resolve_mesh(object())
+        with pytest.raises(ValueError, match="unknown mesh setting"):
+            port.fill_missing_portion_smooth_boundary(
+                _images(48, 40, 1), small_mask(48, 40, 2),
+                config=SolverConfig(mg_threshold_pixels=0, mesh="slice D"), device="cpu")
         monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-        # "auto" solves on the resolved device however many the host holds
-        assert check_single_device("auto", torch.device("cuda")) is None
-        with pytest.raises(NotImplementedError, match="slice D"):
-            check_single_device(object(), torch.device("cuda"))
+        for setting in ("off", None, "auto"):
+            assert resolve_mesh(setting) is None
+
+        mesh = spatial_band_mesh(2, shape=(1, 2), devices="cpu")
+        assert resolve_mesh(mesh) is mesh
+        calls = []
+        real = pfill.sharded_fill
+        monkeypatch.setattr(pfill, "sharded_fill", lambda *a, **k: calls.append(a[2]) or real(*a, **k))
+        imgs, m = _images(64, 56, 2), small_mask(64, 56, 3)
+        port.fill_missing_portion_smooth_boundary(
+            imgs, m, config=SolverConfig(mg_threshold_pixels=0, mesh="auto"), device="cpu")
+        assert calls == []
+        got = port.fill_missing_portion_smooth_boundary(
+            imgs, m, config=SolverConfig(mg_threshold_pixels=0, mesh=mesh), device="cpu")
+        assert calls == [mesh]
+        want = port.fill_missing_portion_smooth_boundary(
+            imgs, m, config=SolverConfig(**MG), device="cpu")
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
     def test_import_leaves_jax_out(self):
         code = (

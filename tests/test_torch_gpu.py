@@ -3,7 +3,9 @@ plain PyTorch version, and the fill on the card against the fill on the CPU.
 Then the detection ops, which are plain torch ops: the same op on the card
 and on the CPU must give equal bits wherever the CPU tests demand equal bits
 of the two packages (that shows that no TF32, no FMA contraction and no
-atomic float add leaked in), and ``detect`` in both routes at 512^2.
+atomic float add leaked in), and ``detect`` in both routes at 512^2. Last,
+``parallel/`` on the card: four shards on one card, and one card a shard
+where the host has four.
 
 These tests import neither jax nor the JAX package, so they run on a CUDA
 host without JAX; there the repository's conftest (which imports jax) is
@@ -506,7 +508,7 @@ class TestDetectionOpsOnCard:
         assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
 
 
-def _detect(scene, n, backends, device, work):
+def _detect(scene, n, backends, device, work, mesh="auto"):
     from satellite_approximation_tpu_torch import config
     from satellite_approximation_tpu_torch.models.detection import pipeline
     from satellite_approximation_tpu_torch.utils.geotiff import GeoTIFF, write_geotiff
@@ -516,7 +518,8 @@ def _detect(scene, n, backends, device, work):
     write_geotiff(scene["B08"], work / "B08.tif")
     params = pipeline.CloudParams.from_root(work)
     status = pipeline.detect(params, mini_diagonal(n), use_cache=False, inputs=dict(scene),
-                             config=detection_config(config, *backends), device=device)
+                             config=detection_config(config, *backends), mesh=mesh,
+                             device=device)
     names = ("cloud_mask", "potential_shadows", "object_based_shadows", "shadow_mask")
     return status, {k: GeoTIFF.open(work / f"{k}.tif").read().astype(bool) for k in names}
 
@@ -562,3 +565,85 @@ class TestDetectOnCard:
         for k, w in want.solutions.items():
             assert (got.solutions[k].height, got.solutions[k].similarity) == (w.height, w.similarity)
             assert got.shadows[k].bounds == want.shadows[k].bounds
+
+
+# ------------------------------------------------------------ multi-device
+
+
+def _shard_devices(cuda_device, n: int, separate: bool):
+    """``n`` shards on one card, or on ``n`` separate cards (a skip on a
+    host with fewer)."""
+    from satellite_approximation_tpu_torch.parallel.mesh import spread_devices
+
+    if not separate:
+        return [cuda_device] * n
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"one card a shard needs {n} CUDA devices, the host has "
+                    f"{torch.cuda.device_count()}")
+    return spread_devices(n, cuda_device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("separate", [False, True], ids=["four-shards-one-card", "one-card-a-shard"])
+class TestShardedOnCard:
+    def test_sharded_fill_matches_one_device(self, cuda_device, separate):
+        """sharded_fill on three meshes against the single-device fill on the
+        card. The replicated tail runs kernels 1 and 2 where it has a level
+        above the coarsest: on (1,4) here, whose tail is 40x56; the other
+        two tails are 20x28, the dense coarse solve alone."""
+        from satellite_approximation_tpu_torch.parallel import sharded_fill
+        from satellite_approximation_tpu_torch.parallel.mesh import (
+            spatial_band_mesh,
+            spatial_mesh_2d,
+        )
+        from satellite_approximation_tpu_torch.parallel.mg import build_sharded_hierarchy
+
+        devices = _shard_devices(cuda_device, 4, separate)
+        imgs, m, *_ = bench_system(160, 224, 3)
+        want = fill.laplace_fill(imgs, m, tolerance=1e-9, refinement_steps=4, device_output=False,
+                                 device=cuda_device)
+        for mesh in (spatial_band_mesh(4, shape=(1, 4), devices=devices),
+                     spatial_band_mesh(4, shape=(2, 2), devices=devices),
+                     spatial_mesh_2d(4, shape=(1, 2, 2), devices=devices)):
+            K.reset_launch_counts()
+            got, iters, rel = sharded_fill(imgs, m, mesh, tolerance=1e-9)
+            if mesh.shape == {"b": 1, "x": 4}:
+                assert len(build_sharded_hierarchy(m, neighbor_degree(m.shape), 4)[2]) == 2
+                assert K.launch_counts["jacobi_zero"] > 0 and K.launch_counts["jacobi_corr"] > 0
+            assert rel <= 1e-9 and iters > 0 and got.device == mesh.first_device
+            np.testing.assert_allclose(got.cpu().numpy(), want.x, rtol=0, atol=1e-5)
+
+    def test_sharded_stencils_bit_equal(self, cuda_device, separate):
+        from satellite_approximation_tpu_torch.ops.blur import gaussian_blur
+        from satellite_approximation_tpu_torch.ops.pitfill import pit_fill
+        from satellite_approximation_tpu_torch.parallel.mesh import make_mesh
+        from satellite_approximation_tpu_torch.parallel.stencils import (
+            sharded_gaussian_blur,
+            sharded_pit_fill,
+        )
+
+        mesh = make_mesh((4,), ("x",), _shard_devices(cuda_device, 4, separate))
+        rng = np.random.default_rng(23)
+        x = torch.from_numpy(rng.random((2, 256, 192)).astype(np.float32)).to(cuda_device)
+        for sigma in (1.0, 4.0):
+            assert torch.equal(sharded_gaussian_blur(x, sigma, mesh).to(cuda_device),
+                               gaussian_blur(x, sigma))
+        p = torch.from_numpy(rng.random((128, 96)).astype(np.float32)).to(cuda_device)
+        p[40:90, 30:60] -= 0.5  # a deep pit across shard boundaries
+        assert torch.equal(sharded_pit_fill(p, 0.3, mesh).to(cuda_device), pit_fill(p, 0.3))
+
+    def test_sharded_detect_bit_equal(self, cuda_device, tmp_path, separate):
+        """``detect`` with the device stages sharded over a flat mesh writes
+        the four masks of the unsharded run, bit for bit."""
+        from satellite_approximation_tpu_torch.parallel.mesh import make_mesh
+        from torch_parity import mini_scene
+
+        mesh = make_mesh((4,), ("d",), _shard_devices(cuda_device, 4, separate))
+        n = 512
+        scene = mini_scene(n)
+        backends = ("torch", "torch")
+        status, masks = _detect(scene, n, backends, cuda_device, tmp_path / "sharded", mesh=mesh)
+        want_status, want = _detect(scene, n, backends, cuda_device, tmp_path / "one", mesh=None)
+        assert masks["object_based_shadows"].any() and status == want_status
+        for name, m in want.items():
+            assert np.array_equal(masks[name], m), name

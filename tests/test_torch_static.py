@@ -68,10 +68,20 @@ def test_detection_modules_are_covered():
         assert f"satellite_approximation_tpu_torch/{rel}" in have, rel
 
 
+def test_parallel_modules_are_covered():
+    """Every module of the multi-device package is linted and held to import
+    no jax, as the JAX package's parallel/ has them (multihost.py aside)."""
+    have = set(IDS)
+    for name in ("__init__", "mesh", "collectives", "halo", "solver", "mg", "fill", "stencils",
+                 "detect", "dryrun"):
+        assert f"satellite_approximation_tpu_torch/parallel/{name}.py" in have, name
+
+
 def test_chip_smoke_phases_cannot_fail_quietly():
     """Every phase raises on failure and nothing catches it: the script has
     no bare ``except`` and no handler for ``Exception`` / ``BaseException``,
-    and ``main`` runs the detection and entry-point phases beside the others."""
+    and ``main`` runs the detection, entry-point and multi-device phases
+    beside the others."""
     path = REPO / "chip_smoke.py"
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -83,7 +93,7 @@ def test_chip_smoke_phases_cannot_fail_quietly():
     called = {n.func.id for n in ast.walk(main) if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)}
     assert {"phase_device", "phase_build", "phase_kernels", "phase_main_path", "phase_full_tile",
             "phase_general_iterate", "phase_benchmark_paths", "phase_detect",
-            "phase_entry_points"} <= called
+            "phase_entry_points", "phase_multi_device"} <= called
 
 
 def test_console_scripts_point_into_the_port():
