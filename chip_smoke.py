@@ -8,6 +8,7 @@ its public entry points at the size users run, and certifies the results.
     python3 chip_smoke.py --against DIR     # kernels of the tree in DIR against these
     python3 chip_smoke.py --tile-detect     # detection alone, once at a full 10980^2 tile
     python3 chip_smoke.py --tile-entry      # the entry points alone, once at a full tile
+    python3 chip_smoke.py mp-worker ...     # one process of phase 11a (phase 11 starts them)
 
 Phases (each raises on failure, so the run exits non-zero):
 
@@ -89,9 +90,20 @@ Phases (each raises on failure, so the run exits non-zero):
    sweep, beta, alpha, histograms and final sampling routed sharded; 10e
    ``parallel.dryrun_multichip(4)``. Each part prints its wall time,
    iterations and the peak memory of each device.
+11. multi-process: the sharded MG-PCG over a mesh that spans processes,
+   each a fresh interpreter on the card. 11a bench.py's 13-band 2048^2 rhs
+   system to 1e-9 on a (1,4) mesh of two processes of two shards, all on
+   one card (gloo through pinned host buffers): x (by its sha256),
+   iterations and residuals bit-equal to the one-process (1,4) solve, the
+   f64 residual re-evaluated, kernels 1 and 2 launched in each worker,
+   each worker's peak memory and seconds in the transport; 11b
+   ``parallel.dcn_dryrun()`` at the JAX defaults (2 x 4 shards, 256^2, to
+   1e-6); 11c on a host with four cards, 11a with one card a shard over
+   NCCL (logged as skipped elsewhere). A worker's failure fails the run.
 
-Each path that a kernel's launch count is read from (phases 4, 6, 7, 9a-9c
-and 10a) runs with every count set to 0 just before it.
+Each path that a kernel's launch count is read from (phases 4, 6, 7, 9a-9c,
+10a, and 11a and 11b in each worker) runs with every count set to 0 just
+before it.
 
 After the phases the script prints three lines: ``{"kernels": [...]}``, the
 card's name and power limit as nvidia-smi gives them, and last
@@ -150,9 +162,6 @@ STRIDE2_TIMED = "both"  # the mode whose times stand in the kernels line
 # the kernels --against times, each on the bench mask and the 60 % mask
 AGAINST = ("jacobi_zero", "jacobi_corr", "jacobi", "residual_entry", "residual_pair",
            "jacobi_zero_half", "jacobi_v2")
-# published peaks of one H100 SXM at its 700 W limit: HBM3 bytes/s, f32 flop/s
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
 # a stationary cycle may raise the residual only within this factor of the
 # f32 floor (the residual of the f32-rounded solution)
 FLOOR_FACTOR = 4.0
@@ -369,110 +378,6 @@ def _value_diff(torch, got, want):
     return err, signs
 
 
-def _sectors(torch, need, elt=4):
-    """32-byte sectors of a row-major raster of ``elt``-byte cells that hold
-    a True cell of the (H, W) ``need``."""
-    per = 32 // elt
-    flat = need.reshape(-1)
-    pad = (-flat.numel()) % per
-    if pad:
-        flat = torch.cat([flat, flat.new_zeros(pad)])
-    return int(flat.view(-1, per).any(dim=1).sum())
-
-
-def _dilate4(torch, m):
-    """m or any of its 4-neighbours."""
-    import torch.nn.functional as F
-
-    p = F.pad(m.to(torch.uint8), (1, 1, 1, 1)).bool()
-    h, w = m.shape
-    return m | p[:h, 1:-1] | p[2:, 1:-1] | p[1:-1, :w] | p[1:-1, 2:]
-
-
-def kernel_work(torch, um, c, sweeps):
-    """Per kernel at (c, H, W) f32 on the mask ``um``: (dense bytes, bytes
-    this mask needs, flops). Dense: every operand read once, every output
-    written once. For this mask: invm everywhere; b and x_hi only in the
-    32-byte sectors that hold an unknown cell; the residual kernels' image
-    and x_lo in those that hold an unknown cell or a 4-neighbour of one;
-    e_c in those that hold the coarse parent of an unknown cell; u in full
-    where known cells are copied; every output in full. Kernel 7 masks by
-    multiplies, so the sign of each output zero depends on every b and u:
-    its two counts agree (``v2_work``), as kernel 8's, which reads no mask.
-    The flops count ~10 a sweep and ~8 for the residual on each cell that
-    computes, ~40 for a residual cascade."""
-    import torch.nn.functional as F
-
-    h, w = um.shape
-    hc, wc = (h + 1) // 2, (w + 1) // 2
-    plane = h * w * 4
-    ras = c * plane
-    ec = c * hc * wc * 4
-    half = c * hc * w * 4
-    unk = c * 32 * _sectors(torch, um)
-    nbr = c * 32 * _sectors(torch, _dilate4(torch, um))
-    coarse = F.pad(um.to(torch.uint8), (0, 2 * wc - w, 0, 2 * hc - h)).view(hc, 2, wc, 2)
-    ec_unk = c * 32 * _sectors(torch, coarse.amax(dim=(1, 3)).bool())
-    n_unk = c * int(um.sum())
-    jac = n_unk * (10 * sweeps + 8)
-    res = n_unk * 40
-    v2 = v2_work(c, h, w, sweeps, True)
-    both = stride2_bytes(STRIDE2_TIMED, (c, h, w))
-    return {
-        "jacobi_zero": (ras + plane + 2 * ras, unk + plane + 2 * ras, jac),
-        "jacobi_corr": (2 * ras + plane + ec + 2 * ras, ras + unk + plane + ec_unk + 2 * ras, jac),
-        "jacobi": (2 * ras + plane + 2 * ras, ras + unk + plane + 2 * ras, jac),
-        "residual_entry": (ras + plane + 2 * ras, nbr + plane + 2 * ras, res),
-        "residual_pair": (3 * ras + plane + ras, 2 * nbr + unk + plane + ras, res),
-        "jacobi_zero_half": (ras + plane + ras + half, unk + plane + ras + half, jac),
-        "jacobi_v2": v2,
-        "stride2": (both, both, 0),
-    }
-
-
-def v2_work(c, h, w, sweeps, emit, deg_bytes=4):
-    """(dense bytes, bytes any mask needs, flops) of kernel 7 at (c, h, w)
-    f32, at the bytes its caller hands it: u and b, the bool mask (one byte
-    a cell) and deg (``deg_bytes`` a cell) once, u and, with ``emit``, r."""
-    ras = c * h * w * 4
-    nbytes = 2 * ras + h * w * (1 + deg_bytes) + (2 if emit else 1) * ras
-    return nbytes, nbytes, c * h * w * (10 * sweeps + (8 if emit else 0))
-
-
-def known_windows(torch, um, tile=48, ring=8):
-    """Share of kernel 7's windows (each ``tile``-square tile with its
-    ``ring``) that hold no unknown cell of the (H, W) mask ``um``: those
-    stream in jacobi_v2.cu."""
-    import torch.nn.functional as F
-
-    h, w = um.shape
-    ty, tx = -(-h // tile), -(-w // tile)
-    pad = (ring, tx * tile + ring - w, ring, ty * tile + ring - h)
-    m = F.pad(um.float()[None, None], pad)
-    win = F.max_pool2d(m, kernel_size=tile + 2 * ring, stride=tile)
-    return float((win == 0).float().mean())
-
-
-def stride2_bytes(mode, shape):
-    """Bytes kernel 8 must move on an f32 x of ``shape`` (..., rows, cols):
-    the rows it reads (the even ones for "rows" and "both", whose every
-    32-byte sector holds an even column; the first half of each row for
-    "interleave") and its output."""
-    *lead, r, c = shape
-    n = int(np.prod(lead, dtype=np.int64))
-    rh, ch = (r + 1) // 2, (c + 1) // 2
-    read = {"rows": rh * c, "cols": r * c, "both": rh * c, "interleave": r * (c // 2)}[mode]
-    write = {"rows": rh * c, "cols": r * ch, "both": rh * ch, "interleave": r * c}[mode]
-    return 4 * n * (read + write)
-
-
-def bound_ms(nbytes, flops):
-    """(the least ms the card could take, what bounds it) at its published
-    peaks."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def check_stride2_edges(torch, K, dev):
     """Kernel 8 bit-equal at ragged widths, odd row counts, one row, and on
     an x whose address is 4 mod 16 bytes (its scalar path)."""
@@ -660,6 +565,10 @@ def kernel_inputs(torch, K, mg, tag, shape, dtype, dev):
 def phase_kernels(torch, K, mg, dev):
     """Every kernel bit-equal to its plain version; times and bounds at the
     main shape on the bench mask and on a 60 % mask."""
+    from satellite_approximation_tpu_torch.utils.roofline import (
+        bound_ms, kernel_work, known_windows, stride2_bytes,
+    )
+
     results = {name: {"max_abs_err": 0.0} for name in KERNELS}
     bounds = {}
 
@@ -690,11 +599,11 @@ def phase_kernels(torch, K, mg, dev):
     for shape, dtype, tag in cases:
         x = kernel_inputs(torch, K, mg, tag, shape, dtype, dev)
         b, u, invm, um, deg, pre, v2 = x.b, x.u, x.invm, x.um, x.deg, x.pre, x.v2
-        bounds = kernel_work(torch, um, shape[0], len(pre)) if tag in ("main", "dense") else {}
+        bounds = kernel_work(um, shape[0], len(pre), STRIDE2_TIMED) if tag in ("main", "dense") else {}
         if bounds:
             need = ", ".join(f"{k} {v[1] / 1e9:.3f}" for k, v in bounds.items())
             log(f"[3 kernels] {tag}: {float(um.float().mean()) * 100:.2f}% unknown, "
-                f"{known_windows(torch, um):.1%} of kernel 7's windows without an unknown cell; "
+                f"{known_windows(um):.1%} of kernel 7's windows without an unknown cell; "
                 f"GB this mask needs: {need}")
         for name, (kern, plain) in x.bare.items():
             err = _bitwise(torch, kern(), plain())
@@ -1030,6 +939,7 @@ def v2_probe_inputs(torch, dev, n=4096):
 def phase_benchmark_paths(torch, K, dev, card):
     """The two benchmark scripts whose Pallas kernels the port carries."""
     from satellite_approximation_tpu_torch import ops
+    from satellite_approximation_tpu_torch.utils.roofline import bound_ms, v2_work
 
     # benchmarks/x_kernel_v2.py main(): v1 (kernel 3) against v2 (kernel 7)
     u, b, m, deg = v2_probe_inputs(torch, dev)
@@ -1327,13 +1237,13 @@ DETECT_N = 4096  # 9d: >= 16 Mpix, so backend "auto" runs the device stages
 
 
 @contextlib.contextmanager
-def spans(torch, targets):
+def spans(torch, targets, keep=True):
     """Inside the block, each call of a function named in ``targets``
     ({label: [(module, attribute), ...]}) adds its wall time, the device
     synchronised at its end, to ``took[label]``, and ``seen[attribute]``
-    lists each call's (args, result). The entry points look their callees
-    up at call time, so wrapping the attribute splits their wall time
-    without an option in the program."""
+    lists each call's (args, result), or None for each without ``keep``.
+    The entry points look their callees up at call time, so wrapping the
+    attribute splits their wall time without an option in the program."""
     took = dict.fromkeys(targets, 0.0)
     seen: dict[str, list] = {}
     saved = []
@@ -1347,7 +1257,7 @@ def spans(torch, targets):
                 out = _fn(*args, **kwargs)
                 torch.cuda.synchronize()
                 took[_label] += time.perf_counter() - t0
-                seen.setdefault(_name, []).append((args, out))
+                seen.setdefault(_name, []).append((args, out) if keep else None)
                 return out
 
             setattr(mod, name, timed)
@@ -1886,6 +1796,186 @@ def phase_multi_device(torch, K, dev, card):
     return counts
 
 
+# ------------------------------------------------------------------ phase 11: multi-process
+
+MP_RESULT = "MP_RESULT "
+MP_PROCESSES, MP_PER_PROCESS = 2, 2
+
+
+def mp_worker(argv) -> int:
+    """One process of phase 11a (``chip_smoke.py mp-worker --coordinator
+    HOST:PORT --process-id P``): bench.py's 13-band 2048^2 rhs system
+    through ``sharded_mg_solve`` to FILL_TOL on a (1, 4) mesh that spans
+    MP_PROCESSES processes of MP_PER_PROCESS shards. Process 0 prints one
+    ``MP_RESULT {...}`` line: iterations, per-band residuals, the sha256 of
+    x's bytes, x's f64 residual re-evaluated, the solve's wall and every
+    process's report (devices, launches of kernels 1 and 2, jax imported,
+    peak memory, and the seconds its solve spent in each cross-process
+    step, timed by ``spans``)."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(REPO))
+    from satellite_approximation_tpu_torch.ops import stencil_kernels as K
+    from satellite_approximation_tpu_torch.parallel import collectives, halo, mg
+    from satellite_approximation_tpu_torch.parallel.mesh import init_process_mesh
+    from satellite_approximation_tpu_torch.parallel.mg import sharded_mg_solve
+    from satellite_approximation_tpu_torch.parallel.multihost import worker_report
+
+    ap = argparse.ArgumentParser(prog="chip_smoke.py mp-worker")
+    ap.add_argument("--coordinator", required=True)
+    ap.add_argument("--process-id", type=int, required=True)
+    args = ap.parse_args(argv)
+    torch.set_num_threads(1)
+    mesh = init_process_mesh((1, MP_PROCESSES * MP_PER_PROCESS), ("b", "x"), args.coordinator,
+                             MP_PROCESSES, args.process_id, MP_PER_PROCESS, "cuda")
+    try:
+        umask, imgs = bench_images()
+        deg, b = bench_rhs(umask, imgs)
+        devices = mesh.distinct_devices()
+        reset_peaks(torch, devices)
+        K.reset_launch_counts()
+        steps = {"halos": [(halo, "_pad_across")],
+                 "sums and the tail's gathers": [(collectives, "complete"), (mg, "complete")],
+                 "loop flags": [(mg, "any_true")], "gathers": [(collectives, "_collect")]}
+        torch.cuda.synchronize()
+        with spans(torch, steps, keep=False) as (took, seen):
+            t0 = time.perf_counter()
+            x, iters, rel = sharded_mg_solve(b, np.zeros_like(b), umask, deg, mesh,
+                                             tolerance=FILL_TOL)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        report = {**worker_report(mesh), "peak_gib": peaks(torch, devices),
+                  "backend": mesh.transport.backend,
+                  "transport_s": {k: round(v, 3) for k, v in took.items()},
+                  "transport_calls": {k: len(seen.get(f[0][1], [])) for k, f in steps.items()}}
+        reports = [None] * MP_PROCESSES
+        dist.all_gather_object(reports, report)
+        if args.process_id == 0:
+            dev = mesh.first_device
+            rel64 = rhs_residual(torch, x, torch.from_numpy(b).to(dev),
+                                 torch.from_numpy(umask).to(dev), torch.from_numpy(deg).to(dev))
+            print(MP_RESULT + json.dumps({
+                "iterations": int(iters), "rel": [float(v) for v in rel],
+                "sha256": hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest(),
+                "shape": list(x.shape), "rel64": rel64, "solve_s": wall, "processes": reports,
+            }), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_multi_process(torch, K, dev, card):
+    """Phase 11: the sharded MG-PCG over a mesh that spans processes, each a
+    fresh interpreter on the card. 11a bench.py's 13-band 2048^2 system on
+    a (1,4) mesh of two processes of two shards, every shard on one card
+    (gloo through pinned host buffers): x (by its sha256) and the
+    iterations bit-equal to the one-process (1,4) ``sharded_mg_solve`` of
+    phase 10's layout, its f64 residual re-evaluated, kernels 1 and 2
+    launched in each worker; 11b ``dcn_dryrun()`` at the JAX defaults (2 x
+    4 shards, 256^2); 11c on a host with four cards, 11a with one card a
+    shard over NCCL (skipped, and logged, elsewhere). Returns the workers'
+    launches of kernels 1 and 2."""
+    import hashlib
+
+    from satellite_approximation_tpu_torch.parallel import dcn_dryrun
+    from satellite_approximation_tpu_torch.parallel.mesh import spatial_band_mesh, spread_devices
+    from satellite_approximation_tpu_torch.parallel.mg import sharded_mg_solve
+    from satellite_approximation_tpu_torch.parallel.multihost import free_port, run_processes
+
+    t_phase = time.perf_counter()
+    counts = dict.fromkeys(("jacobi_zero", "jacobi_corr"), 0)
+    umask, imgs = bench_images()
+    deg, b = bench_rhs(umask, imgs)
+    n = MP_PROCESSES * MP_PER_PROCESS
+
+    def one_process(devices):
+        mesh = spatial_band_mesh(n, shape=(1, n), devices=devices)
+        reset_peaks(torch, devices)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, iters, rel = sharded_mg_solve(b, np.zeros_like(b), umask, deg, mesh,
+                                         tolerance=FILL_TOL)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        digest = hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest()
+        return {"iterations": iters, "rel": [float(v) for v in rel], "sha256": digest,
+                "solve_s": wall, "peak": peaks(torch, devices), "mesh": repr(mesh)}
+
+    def processes(label, env):
+        coordinator = f"127.0.0.1:{free_port()}"
+        t0 = time.perf_counter()
+        outs = run_processes([[str(REPO / "chip_smoke.py"), "mp-worker", "--coordinator",
+                               coordinator, "--process-id", str(p)] for p in range(MP_PROCESSES)],
+                             timeout_s=300.0, env=env)
+        wall = time.perf_counter() - t0
+        lines = [ln for ln in outs[0].splitlines() if ln.startswith(MP_RESULT)]
+        if len(lines) != 1:
+            raise AssertionError(f"{label}: no result line from process 0:\n{outs[0]}")
+        return json.loads(lines[0][len(MP_RESULT):]), wall
+
+    def check(label, got, want, wall, backend):
+        if (got["sha256"], got["iterations"], got["rel"]) != (want["sha256"], want["iterations"],
+                                                               want["rel"]):
+            raise AssertionError(f"{label}: x or iterations differ from one process: "
+                                 f"{got['iterations']} / {want['iterations']} iterations, "
+                                 f"{got['sha256'][:12]} / {want['sha256'][:12]}")
+        if not (max(got["rel"]) <= FILL_TOL and got["rel64"] <= FILL_TOL):
+            raise AssertionError(f"{label}: residual {max(got['rel'])}, f64 {got['rel64']}")
+        for rep in got["processes"]:
+            if rep["backend"] != backend or rep["jax_imported"]:
+                raise AssertionError(f"{label}: process {rep['process']}: {rep}")
+            if not all(rep["launches"].values()):
+                raise AssertionError(f"{label}: kernels 1 and 2 not launched in process "
+                                     f"{rep['process']}: {rep['launches']}")
+            for k, v in rep["launches"].items():
+                counts[k] += v
+            log(f"[{label}] process {rep['process']}: shards on {rep['devices']}, launches "
+                f"{rep['launches']}, jax imported {rep['jax_imported']}, peak {rep['peak_gib']} GiB, "
+                f"seconds in the transport {rep['transport_s']} over {rep['transport_calls']} calls")
+        log(f"[{label}] {BANDS}x{H}x{W} to {FILL_TOL} across {MP_PROCESSES} processes over "
+            f"{backend}: solve {got['solve_s']:.3f} s ({wall:.3f} s with the workers' start), "
+            f"one process {want['solve_s']:.3f} s on {want['mesh']} (peak {want['peak']} GiB); "
+            f"{got['iterations']} iterations, x bit-equal (sha256 {got['sha256'][:16]}), certified "
+            f"{max(got['rel']):.3e}, f64 residual {got['rel64']:.3e} [{card}]")
+
+    # ---- 11a: two processes share the card
+    want = one_process([dev] * n)
+    got, wall = processes("11a", {"CUDA_VISIBLE_DEVICES": "0"})
+    check("11a", got, want, wall, "gloo")
+
+    # ---- 11b: the dry run at the JAX defaults
+    t0 = time.perf_counter()
+    out = dcn_dryrun()
+    wall = time.perf_counter() - t0
+    if not (out["ok"] and out["devices"] == 8 and out["rel_residual"] <= 1e-6):
+        raise AssertionError(f"11b: dcn_dryrun() {out}")
+    for rep in out["processes"]:
+        if rep["jax_imported"] or not all(rep["launches"].values()):
+            raise AssertionError(f"11b: process {rep['process']}: {rep}")
+        for k, v in rep["launches"].items():
+            counts[k] += v
+    log(f"[11b] dcn_dryrun(): {out['process_count']} processes x "
+        f"{out['local_devices_per_process']} shards over {out['backend']}, {out['size']}^2, "
+        f"{out['iterations']} iterations to {out['rel_residual']:.3e}, solve {out['solve_s']:.3f} s "
+        f"({wall:.3f} s with the workers' start), launches "
+        f"{[rep['launches'] for rep in out['processes']]} [{card}]")
+
+    # ---- 11c: one card a shard over NCCL
+    if torch.cuda.device_count() >= n:
+        want = one_process(spread_devices(n, dev))
+        got, wall = processes("11c", {})
+        check("11c", got, want, wall, "nccl")
+    else:
+        log(f"[11c] skipped: one card a shard needs {n} cards, the host has "
+            f"{torch.cuda.device_count()}")
+    log(f"[11 processes] kernel launches in the workers: {counts}")
+    log(f"[11 processes] phase 11 in {time.perf_counter() - t_phase:.3f} s [{card}]")
+    return counts
+
+
 def load_kernels_of(tree: Path):
     """``ops/stencil_kernels.py`` of the checkout at ``tree``, under a name of
     its own: it builds that checkout's ``csrc/`` into that checkout's
@@ -1917,6 +2007,8 @@ def phase_against(torch, K, mg, dev, card, tree: Path):
     see ``kernels_from``): each measurement runs with one library, then the
     other, in turns parent, change, change, parent (kernel 8 also torch's own
     call in turns between them)."""
+    from satellite_approximation_tpu_torch.utils.roofline import bound_ms, kernel_work, v2_work
+
     t0 = time.perf_counter()
     libs = {"parent": load_kernels_of(tree), "change": K}
     for mod in libs.values():
@@ -1956,7 +2048,7 @@ def phase_against(torch, K, mg, dev, card, tree: Path):
     def time_kernels(tag):
         shape = (BANDS, H, W)
         x = kernel_inputs(torch, K, mg, tag, shape, torch.float32, dev)
-        need = kernel_work(torch, x.um, BANDS, len(x.pre))
+        need = kernel_work(x.um, BANDS, len(x.pre), STRIDE2_TIMED)
         time_calls(x.calls, AGAINST, tag, shape, need)
         if tag == "main":
             for mode in K.STRIDE2_MODES:
@@ -2021,7 +2113,7 @@ def phase_against(torch, K, mg, dev, card, tree: Path):
                                 lambda: K.residual_entry_plain(img, invm)),
              "residual_pair": (lambda: K.residual_pair(img, x_hi, x_lo, invm),
                                lambda: K.residual_pair_plain(img, x_hi, x_lo, invm))}
-    time_calls(calls, tuple(calls), "tile", (1, TILE, TILE), kernel_work(torch, m, 1, 0))
+    time_calls(calls, tuple(calls), "tile", (1, TILE, TILE), kernel_work(m, 1, 0, STRIDE2_TIMED))
     del x_hi, x_lo, invm, calls
     torch.cuda.empty_cache()
 
@@ -2039,6 +2131,8 @@ def phase_against(torch, K, mg, dev, card, tree: Path):
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["mp-worker"]:
+        return mp_worker(sys.argv[2:])
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2083,6 +2177,8 @@ def main() -> int:
     for name, n in phase_entry_points(torch, K, dev, card).items():
         counts[name] = counts.get(name, 0) + n
     for name, n in phase_multi_device(torch, K, dev, card).items():
+        counts[name] = counts.get(name, 0) + n
+    for name, n in phase_multi_process(torch, K, dev, card).items():
         counts[name] = counts.get(name, 0) + n
     missing = [name for name in KERNELS if counts.get(name, 0) == 0]
     if missing:

@@ -14,6 +14,15 @@ device and hands every shard the same value, so that every shard takes the
 same branch. Copies between CUDA devices are issued without a host
 synchronisation; the one host read is :func:`any_true`, the stopping flag
 that a loop reads once per iteration.
+
+On a mesh that spans processes a grid holds None for every shard that
+another process owns, and the functions that read another shard's tensor
+take it through the mesh's transport: a line of shards (:class:`Line`) is
+completed by an all-gather among the processes that own it, a reduction
+adds every shard's partial in shard order on each process (bit-equal to a
+one-process mesh of the same shape; the backend's own all-reduce would add
+in its order), the loop flag is one all-reduce of its maximum, and
+:func:`gather` assembles on every process or on one.
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ import math
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import as_tensor
 from .mesh import ShardMesh
@@ -50,10 +60,12 @@ def axis_index(mesh: ShardMesh, axis: str) -> np.ndarray:
 
 
 def smap(fn, *grids) -> np.ndarray:
-    """``fn`` applied shard by shard: out[i] = fn(grids[0][i], grids[1][i], ...)."""
+    """``fn`` applied shard by shard: out[i] = fn(grids[0][i], grids[1][i], ...);
+    None where another process holds the shard."""
     out = np.empty(grids[0].shape, dtype=object)
     for idx in np.ndindex(out.shape):
-        out[idx] = fn(*(g[idx] for g in grids))
+        if grids[0][idx] is not None:
+            out[idx] = fn(*(g[idx] for g in grids))
     return out
 
 
@@ -73,13 +85,62 @@ def lines(mesh: ShardMesh, axes) -> np.ndarray:
     return flat.transpose(perm).reshape(-1, math.prod(mesh.shape[a] for a in axes))
 
 
+class Line(list):
+    """The shards of one line of a mesh that spans processes, in order: None
+    where another process holds the shard. ``mesh`` and ``index`` (the flat
+    shard indices) say whose each one is."""
+
+    def __init__(self, shards, mesh: ShardMesh, index):
+        super().__init__(shards)
+        self.mesh = mesh
+        self.index = [int(i) for i in index]
+
+    def owners(self) -> list[int]:
+        return [int(self.mesh.owners.flat[i]) for i in self.index]
+
+
 def map_lines(mesh: ShardMesh, grid: np.ndarray, axis, fn) -> np.ndarray:
-    """``fn(list of shards)`` -> list, for every line of shards along ``axis``."""
+    """``fn(list of shards)`` -> list, for every line of shards along ``axis``
+    (a :class:`Line` on a mesh that spans processes; every process calls
+    ``fn`` for every line, in the same order)."""
     out = np.empty(grid.shape, dtype=object)
     src, dst = grid.reshape(-1), out.reshape(-1)
     for group in lines(mesh, axis):
-        for i, t in zip(group, fn([src[i] for i in group])):
+        line = [src[i] for i in group]
+        if mesh.spans_processes:
+            line = Line(line, mesh, group)
+        for i, t in zip(group, fn(line)):
             dst[i] = t
+    return out
+
+
+def complete(line: list) -> list:
+    """Every shard's tensor of a line: a :class:`Line` gets the shards of the
+    other processes that own part of it, by one all-gather among them (the
+    shards must have one shape), each on this process's first device; any
+    other list comes back as it is. A process that owns none of the line
+    gets it back unchanged."""
+    if not isinstance(line, Line):
+        return line
+    mesh, owners = line.mesh, line.owners()
+    ranks = sorted(set(owners))
+    if len(ranks) == 1:
+        return list(line)
+    tr = mesh.transport
+    group = tr.group(ranks)
+    if mesh.rank not in ranks:
+        return list(line)
+    mine = [t for t in line if t is not None]
+    count = max(owners.count(r) for r in ranks)
+    send = torch.stack(mine + [torch.zeros_like(mine[0])] * (count - len(mine)))
+    bufs = [tr.incoming(send.shape, send.dtype) for _ in ranks]
+    dist.all_gather(bufs, tr.outgoing(send), group=group)
+    got = dict(zip(ranks, bufs))
+    out, seen = [], dict.fromkeys(ranks, 0)
+    dev = mesh.first_device
+    for t, r in zip(line, owners):
+        out.append(t if t is not None else move(got[r][seen[r]], dev))
+        seen[r] += 1
     return out
 
 
@@ -87,11 +148,17 @@ def _reduce(mesh: ShardMesh, grid: np.ndarray, axes, op) -> np.ndarray:
     out = np.empty(grid.shape, dtype=object)
     src, dst, devs = grid.reshape(-1), out.reshape(-1), mesh.devices.reshape(-1)
     for group in lines(mesh, axes):
-        acc = src[group[0]]
-        for i in group[1:]:
-            acc = op(acc, move(src[i], acc.device))
+        parts = [src[i] for i in group]
+        if mesh.spans_processes:
+            parts = complete(Line(parts, mesh, group))
+            if parts[0] is None:  # this process owns none of the line
+                continue
+        acc = parts[0]
+        for t in parts[1:]:
+            acc = op(acc, move(t, acc.device))
         for i in group:
-            dst[i] = move(acc, devs[i])
+            if src[i] is not None:
+                dst[i] = move(acc, devs[i])
     return out
 
 
@@ -107,9 +174,16 @@ def pmax(mesh: ShardMesh, grid: np.ndarray, axes) -> np.ndarray:
 
 def any_true(mesh: ShardMesh, grid) -> bool:
     """Whether any shard's tensor (of a grid, or of a list of shards) holds
-    a True: one host read."""
+    a True: one host read. Across processes, one all-reduce of the maximum
+    of each process's flag, so that every process takes the same branch."""
     shards = grid.reshape(-1) if isinstance(grid, np.ndarray) else grid
-    return bool(all_gather([t.any().reshape(1) for t in shards], 0, mesh.first_device).any())
+    flag = all_gather([t.any().reshape(1) for t in shards if t is not None], 0,
+                      mesh.first_device).any()
+    if not mesh.spans_processes:
+        return bool(flag)
+    flag = mesh.transport.outgoing(flag.to(torch.int32).reshape(1))
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+    return bool(flag.item())
 
 
 def all_gather(shards: list, dim: int, device: torch.device) -> torch.Tensor:
@@ -142,11 +216,14 @@ def _block(mesh: ShardMesh, spec, idx: dict, shape) -> tuple:
 def shard(mesh: ShardMesh, x, spec, dtype: torch.dtype | None = None) -> np.ndarray:
     """Split the global ``x`` (numpy array or tensor) into a grid under
     ``spec``; each block goes to its shard's device once (replicas on one
-    device share it)."""
+    device share it). Across processes each places only its own blocks
+    (each builds the same global ``x``)."""
     shape = tuple(x.shape)
     out = np.empty(mesh.dims, dtype=object)
     placed = {}
     for idx in np.ndindex(mesh.dims):
+        if not mesh.owns(idx):
+            continue
         dev = mesh.devices[idx]
         sl = _block(mesh, spec, dict(zip(mesh.axis_names, idx)), shape)
         key = (dev, tuple((s.start, s.stop) for s in sl))
@@ -156,9 +233,39 @@ def shard(mesh: ShardMesh, x, spec, dtype: torch.dtype | None = None) -> np.ndar
     return out
 
 
-def gather(mesh: ShardMesh, grid: np.ndarray, spec) -> torch.Tensor:
+def _collect(mesh: ShardMesh, grid: np.ndarray, root: int | None) -> np.ndarray | None:
+    """Across processes: a grid of every shard's tensor, by one all-gather
+    (``root`` None) or one gather to process ``root`` (None elsewhere).
+    Every process owns as many shards, of one shape."""
+    tr = mesh.transport
+    flat = grid.reshape(-1)
+    send = tr.outgoing(torch.stack([t for t in flat if t is not None]))
+    n = dist.get_world_size()
+    bufs = ([tr.incoming(send.shape, send.dtype) for _ in range(n)]
+            if root is None or mesh.rank == root else None)
+    if root is None:
+        dist.all_gather(bufs, send)
+    else:
+        dist.gather(send, bufs, dst=root)
+        if mesh.rank != root:
+            return None
+    out = np.empty(grid.shape, dtype=object)
+    seen = [0] * n
+    for i, owner in enumerate(mesh.owners.reshape(-1).tolist()):
+        out.flat[i] = flat[i] if flat[i] is not None else bufs[owner][seen[owner]]
+        seen[owner] += 1
+    return out
+
+
+def gather(mesh: ShardMesh, grid: np.ndarray, spec, root: int | None = None) -> torch.Tensor | None:
     """The global tensor of a grid, assembled on the mesh's first device:
-    the explicit form of a reshard to replicated."""
+    the explicit form of a reshard to replicated. Across processes it is
+    assembled on every process (``root`` None) or on process ``root`` only,
+    and the others get None."""
+    if mesh.spans_processes:
+        grid = _collect(mesh, grid, root)
+        if grid is None:
+            return None
     device = mesh.first_device
     first = grid.reshape(-1)[0]
     shape = list(first.shape)

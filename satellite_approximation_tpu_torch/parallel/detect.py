@@ -58,6 +58,7 @@ def sharded_sweep(mesh: ShardMesh):
     and each shard runs ``matching._bucket_sweep`` on its heights:
     bit-equal per (height, cloud) cell. Returns the (Nh, Nc) similarities
     on the mesh's first device."""
+    mesh.require_one_process("sharded_sweep")
     devs = _devices(mesh)
     n = len(devs)
     replicas: dict = {}
@@ -130,6 +131,7 @@ def sharded_alpha_map(nir_difference, mesh: ShardMesh, alpha_a: float = 17.0,
     ``padded_output``: return ``(row shards, rows)``, the form the other
     row-sharded stages take; otherwise the (H, W) tensor on the mesh's first
     device."""
+    mesh.require_one_process("sharded_alpha_map")
     shards, h = _pad_rows(nir_difference, mesh, torch.float32)
     out = []
     for s in shards:
@@ -147,6 +149,7 @@ def sharded_beta_map(shadows, solutions, clp_blended, diagonal: float, mesh: Sha
     shard composites its block into its own raster with ``_beta_bucket``,
     and an elementwise maximum over the shards (``pmax``) merges the
     rasters. ``device_output`` returns the tensor on the first device."""
+    mesh.require_one_process("sharded_beta_map")
     devs = _devices(mesh)
     n = len(devs)
     h, w = clp_blended.shape
@@ -185,6 +188,7 @@ def sharded_histograms(alpha, beta, shadow, divisions, mesh: ShardMesh, rows: in
     int32 sums in shard order (``psum``, exact in any order) merge them; the
     result lies on the first device. ``rows``: the true row count when
     the inputs are row shards."""
+    mesh.require_one_process("sharded_histograms")
     a, h = _pad_rows(alpha, mesh, torch.float32)
     h = _rows(h, rows)
     b, _ = _pad_rows(beta, mesh, torch.float32)
@@ -212,6 +216,7 @@ def sharded_probability_map(shadow_mask, alpha, beta, mesh: ShardMesh,
     """``refinement_torch.probability_map`` with the histograms sharded; the
     hole fill and the surface composite run on the host (serial by nature,
     ProbabilityRefinement.cpp:162-183). ``rows``: as in :func:`sharded_histograms`."""
+    mesh.require_one_process("sharded_probability_map")
     first = mesh.first_device
     hists = sharded_histograms(alpha, beta, push_mask(shadow_mask, first),
                                tuple(config.histogram_divisions), mesh, rows=rows)
@@ -227,6 +232,7 @@ def sharded_improved_shadow_mask(object_shadow_mask, cloud_mask, alpha, beta, su
     on each shard, the extended surface table on every device). Returns the
     (H, W) bool mask, a tensor on the first device with ``device_output``.
     ``rows``: as in :func:`sharded_histograms`."""
+    mesh.require_one_process("sharded_improved_shadow_mask")
     first = mesh.first_device
     a, h = _pad_rows(alpha, mesh, torch.float32)
     h = _rows(h, rows)
@@ -299,6 +305,7 @@ def mini_detect_sharded(mesh: ShardMesh, n: int = 256) -> dict:
     over rows; the blur and the pit fill are held in ``parallel.stencils``).
     Raises unless the object-based shadow mask, alpha, beta and the final
     mask are bit-equal. Returns the masks (automatic_detection.cpp:80-236)."""
+    mesh.require_one_process("mini_detect_sharded")
     from ..config import DetectionConfig
     from ..models.detection import cloud_mask as cm
     from ..models.detection import matching

@@ -118,6 +118,7 @@ def sharded_fill(image, umask, mesh: ShardMesh, replacement=None, tolerance: flo
     f64 tensor of ``image``'s shape on the mesh's first device: the solve
     gathers its shards before it cuts the padding off, so the composite is
     made whole there. Iterations add up over the chunks."""
+    mesh.require_one_process("sharded_fill")
     img = np.asarray(image)
     squeeze = img.ndim == 2
     if squeeze:

@@ -10,6 +10,13 @@ CPU and how a single card carries four (the counterpart of the JAX tests'
 ``--xla_force_host_platform_device_count``). On a host with several cards,
 ``make_mesh`` puts one shard on each.
 
+A mesh may also span processes (:func:`init_process_mesh`, the counterpart
+of ``jax.distributed.initialize`` plus a global ``make_mesh``): each shard
+then has an owning process, every process holds the same global mesh, and
+a grid holds tensors only for the shards its process owns. A
+:class:`Transport` carries what crosses between the processes; a mesh
+inside one process has none and runs exactly the one-process code.
+
 The policies (``split_band_spatial``, ``split_rows_cols``, the automatic
 fill mesh) are those of ``satellite_approximation_tpu/parallel/mesh.py``.
 """
@@ -20,6 +27,44 @@ import math
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from ..device import resolve_device
+
+
+class Transport:
+    """How tensors cross between the processes of a mesh: the
+    ``torch.distributed`` backend (:func:`choose_backend`) and where a
+    tensor waits while it travels. NCCL moves tensors on this process's
+    first card; gloo moves host tensors, and a shard on a card goes
+    through a pinned host buffer each way."""
+
+    def __init__(self, backend: str, device: torch.device):
+        self.backend = backend
+        self.wire = device if backend == "nccl" else torch.device("cpu")
+        self.pin = backend == "gloo" and device.type == "cuda"
+        self._groups: dict = {}
+
+    def outgoing(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` where the backend sends it from, contiguous."""
+        if self.pin and t.device.type == "cuda":
+            buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            return buf.copy_(t)
+        return t.to(self.wire).contiguous()
+
+    def incoming(self, shape, dtype: torch.dtype) -> torch.Tensor:
+        """A buffer that the backend receives into."""
+        return torch.empty(tuple(shape), dtype=dtype, device=self.wire, pin_memory=self.pin)
+
+    def group(self, ranks):
+        """The process group of ``ranks`` (None for every process). Every
+        process must ask for each group in the same order, members or not:
+        ``dist.new_group`` is collective over the world."""
+        key = tuple(ranks)
+        if key not in self._groups:
+            self._groups[key] = (None if len(key) == dist.get_world_size()
+                                 else dist.new_group(list(key)))
+        return self._groups[key]
 
 
 class ShardMesh:
@@ -27,9 +72,12 @@ class ShardMesh:
 
     ``shape[name]`` is the axis's shard count, ``axis_names`` their order,
     ``devices`` an object array of ``torch.device`` in the mesh's shape and
-    ``size`` the number of shards."""
+    ``size`` the number of shards. On a mesh that spans processes,
+    ``owners`` holds each shard's process, ``rank`` is this process and
+    ``transport`` carries tensors between them (None inside one process)."""
 
-    def __init__(self, shape, axis_names, devices):
+    def __init__(self, shape, axis_names, devices, owners=None, rank: int = 0,
+                 transport: Transport | None = None):
         shape = tuple(int(s) for s in shape)
         axis_names = tuple(axis_names)
         if len(shape) != len(axis_names) or len(set(axis_names)) != len(axis_names):
@@ -49,24 +97,55 @@ class ShardMesh:
         for i, d in enumerate(devs):
             grid[i] = d
         self.devices = grid.reshape(shape)
+        self.owners = (np.zeros(shape, dtype=int) if owners is None
+                       else np.asarray(owners, dtype=int).reshape(shape))
+        self.rank = int(rank)
+        self.transport = transport
+        if not (self.owners == self.rank).any():
+            raise ValueError(f"process {self.rank} owns no shard of the mesh")
 
     @property
     def dims(self) -> tuple[int, ...]:
         return tuple(self.shape[a] for a in self.axis_names)
 
     @property
+    def spans_processes(self) -> bool:
+        return self.transport is not None
+
+    def owns(self, idx) -> bool:
+        """Whether this process holds the shard at ``idx`` (a flat index or
+        a mesh index)."""
+        owner = self.owners.flat[idx] if isinstance(idx, (int, np.integer)) else self.owners[idx]
+        return int(owner) == self.rank
+
+    @property
     def first_device(self) -> torch.device:
-        return self.devices.reshape(-1)[0]
+        """The device of this process's first shard."""
+        return self.distinct_devices()[0]
 
     def distinct_devices(self) -> list[torch.device]:
-        """The mesh's devices, each once, in shard order."""
-        return list(dict.fromkeys(self.devices.reshape(-1)))
+        """The devices of this process's shards, each once, in shard order."""
+        mine = self.devices.reshape(-1)[self.owners.reshape(-1) == self.rank]
+        return list(dict.fromkeys(mine))
+
+    def require_one_process(self, what: str) -> None:
+        """Raise for ``what``, a function with no cross-process form, on a
+        mesh that spans processes: it would need whole shards that other
+        processes hold."""
+        if self.spans_processes:
+            n = len(set(self.owners.reshape(-1).tolist()))
+            raise NotImplementedError(
+                f"{what} runs on a mesh inside one process; this mesh spans {n} processes"
+            )
 
     def __repr__(self) -> str:
         devs = self.devices.reshape(-1)
-        distinct = self.distinct_devices()
+        distinct = list(dict.fromkeys(devs))
         where = (f"{distinct[0]} x{len(devs)}" if len(distinct) == 1
                  else ", ".join(str(d) for d in devs))
+        if self.spans_processes:
+            n = len(set(self.owners.reshape(-1).tolist()))
+            where += f"; {n} processes over {self.transport.backend}, this is {self.rank}"
         return f"ShardMesh({self.shape}, {where})"
 
 
@@ -189,3 +268,61 @@ def resolve_mesh(setting) -> ShardMesh | None:
     if setting is None or setting in ("off", "auto"):
         return None
     raise ValueError(f"unknown mesh setting {setting!r}")
+
+
+def process_devices(n_processes: int, per_process: int, device) -> list[list[torch.device]]:
+    """Each process's shard devices: one card a shard where ``device`` is
+    CUDA and the host has ``n_processes * per_process`` cards (each process
+    its own), else ``device`` for every shard of every process."""
+    flat = spread_devices(n_processes * per_process, device)
+    flat = [torch.device("cuda", 0) if d.type == "cuda" and d.index is None else d for d in flat]
+    return [flat[p * per_process : (p + 1) * per_process] for p in range(n_processes)]
+
+
+def choose_backend(devices_by_process) -> str:
+    """The ``torch.distributed`` backend for processes whose shards live on
+    ``devices_by_process``: NCCL where each process owns cards of its own
+    (tensors stay on the card); gloo on the CPU, and where processes share
+    a card, which NCCL refuses (two ranks on one GPU): the shards then
+    travel through pinned host buffers (:class:`Transport`)."""
+    owner: dict = {}
+    for p, devs in enumerate(devices_by_process):
+        for d in devs:
+            owner.setdefault(torch.device(d), set()).add(p)
+    if any(d.type != "cuda" for d in owner):
+        return "gloo"
+    return "nccl" if all(len(ps) == 1 for ps in owner.values()) else "gloo"
+
+
+def init_process_mesh(shape, axis_names, coordinator: str, num_processes: int, process_id: int,
+                      per_process: int, device=None, timeout_s: float = 600.0) -> ShardMesh:
+    """Start the process group and return the global mesh, as this process
+    sees it: the counterpart of ``jax.distributed.initialize(coordinator,
+    num_processes, process_id)`` followed by ``make_mesh(shape,
+    axis_names)``. Process p owns shards p * per_process .. (p + 1) *
+    per_process - 1 in shard order, on its own cards where the host has one
+    a shard (:func:`process_devices`); ``device=None`` is the card and
+    raises without one. ``coordinator`` is "host:port" of process 0. A
+    failed start raises; nothing falls back to another backend."""
+    import datetime
+
+    if math.prod(shape) != num_processes * per_process:
+        raise ValueError(f"mesh shape {tuple(shape)} does not cover {num_processes} processes "
+                         f"of {per_process} shards")
+    by_process = process_devices(num_processes, per_process, resolve_device(device))
+    mine = by_process[process_id]
+    backend = choose_backend(by_process)
+    if mine[0].type == "cuda":
+        torch.cuda.set_device(mine[0])
+    dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
+                            world_size=num_processes, rank=process_id,
+                            timeout=datetime.timedelta(seconds=timeout_s))
+    # every rank takes part in the first collective (NCCL's point-to-point
+    # batches may not come first)
+    if backend == "nccl":
+        dist.barrier(device_ids=[mine[0].index])
+    else:
+        dist.barrier()
+    owners = np.repeat(np.arange(num_processes), per_process)
+    return ShardMesh(shape, axis_names, [d for devs in by_process for d in devs], owners=owners,
+                     rank=process_id, transport=Transport(backend, mine[0]))

@@ -16,6 +16,12 @@ The PCG loop reads one flag a iteration, true while any band group is above
 its threshold; its dot products are summed over the spatial shards. The
 f64 refinement around it re-measures the true residual in f64 and re-solves
 the correction, at most three times.
+
+On a mesh that spans processes the same code runs in every process, on
+the shards it owns: halos and sums cross through the mesh's transport, the
+tail's residual is all-gathered and each process runs the single-device
+V-cycle once per device it owns, and the solution is assembled on process
+0 only (the per-band residuals on every process).
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ from ..device import as_tensor
 from ..models import multigrid as M
 from ..models.cg import neighbor_degree
 from .collectives import (
-    all_gather, any_true, gather, map_lines, on_device, shard, smap, unzip,
+    all_gather, any_true, complete, gather, map_lines, on_device, shard, smap, unzip,
 )
 from .halo import halo_pad_cols, halo_pad_rows
 from .mesh import ShardMesh
@@ -207,13 +213,17 @@ def _tail(lay: _Layout, r, tails: dict):
     xdim = lay.mesh.shape["x"] if two_d else 1
 
     def run(shards):
-        hl, wl = shards[0].shape[-2:]
+        full = complete(shards)
         done = {}
         out = []
         for k, s in enumerate(shards):
+            if s is None:
+                out.append(None)
+                continue
+            hl, wl = s.shape[-2:]
             dev = s.device
             if dev not in done:
-                rows = [all_gather(shards[i * xdim : (i + 1) * xdim], -1, dev) for i in range(ydim)]
+                rows = [all_gather(full[i * xdim : (i + 1) * xdim], -1, dev) for i in range(ydim)]
                 with on_device(dev):
                     done[dev] = M._v_cycle(tails[dev], all_gather(rows, -2, dev))
             yi, xi = divmod(k, xdim)
@@ -344,14 +354,17 @@ def sharded_mg_solve(b, x0, umask, deg, mesh: ShardMesh, tolerance: float = 1e-6
     rounded system).
     Returns (x, iterations, relative residual per band): x a (C, H, W) f64
     tensor gathered on the mesh's first device (the padded rows gathered
-    and cut off), the residuals a numpy array."""
+    and cut off), the residuals a numpy array. On a mesh that spans
+    processes every process passes the same inputs, and x is None but on
+    process 0."""
     c, h, w = b.shape
     if deg is None:
         deg = neighbor_degree((h, w))
     lay = _Layout(mesh, two_d=False)
     hier = build_sharded_hierarchy(umask, deg, mesh.shape["x"])
     x64, total, rel = _solve(lay, b, x0, hier, (c, h, w), tolerance, max_iterations)
-    return gather(mesh, x64, lay.spec)[:, :h, :], total, rel
+    x = gather(mesh, x64, lay.spec, root=0)
+    return (None if x is None else x[:, :h, :]), total, rel
 
 
 def sharded_mg_solve_2d(b, x0, umask, deg, mesh: ShardMesh, tolerance: float = 1e-6,
@@ -365,7 +378,8 @@ def sharded_mg_solve_2d(b, x0, umask, deg, mesh: ShardMesh, tolerance: float = 1
     lay = _Layout(mesh, two_d=True)
     hier = build_sharded_hierarchy_2d(umask, deg, mesh.shape["y"], mesh.shape["x"])
     x64, total, rel = _solve(lay, b, x0, hier, (c, h, w), tolerance, max_iterations)
-    return gather(mesh, x64, lay.spec)[:, :h, :w], total, rel
+    x = gather(mesh, x64, lay.spec, root=0)
+    return (None if x is None else x[:, :h, :w]), total, rel
 
 
 def comm_volume_report_2d(h: int, w: int, c: int, ydim: int, xdim: int,

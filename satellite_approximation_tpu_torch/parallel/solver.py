@@ -100,6 +100,7 @@ def sharded_masked_cg(b, x0, umask, deg, mesh: ShardMesh, tolerance: float = 1e-
     / ``deg`` are (H, W), split over 'x'. Returns (x, iterations, final
     ||r||^2 per band): x a (C, H, W) f32 tensor and ||r||^2 a (C,) tensor,
     both gathered on the mesh's first device."""
+    mesh.require_one_process("sharded_masked_cg")
     f32 = torch.float32
     b_s = shard(mesh, b, _BANDS_ROWS, f32)
     x0_s = shard(mesh, x0, _BANDS_ROWS, f32)
@@ -116,6 +117,7 @@ def sharded_training_step(mesh: ShardMesh):
     ``step(inputs, repl, umask) -> (out, ||r||^2 per band)``, inputs
     (C, H, W) and umask (H, W), the outputs gathered on the first device.
     Used by the multi-device dry run."""
+    mesh.require_one_process("sharded_training_step")
 
     def step(inputs, repl, umask):
         f32 = torch.float32

@@ -72,6 +72,7 @@ def sharded_gaussian_blur(image, sigma: float, mesh: ShardMesh) -> torch.Tensor:
     """Reference-exact Gaussian blur of a (H, W) or (C, H, W) image with rows
     sharded over ``mesh``'s 'x' axis. Rows must split evenly over the shards
     with at least radius + 1 = int(2 * sigma) + 2 rows a shard."""
+    mesh.require_one_process("sharded_gaussian_blur")
     kernel = strip_kernel(float(sigma))
     radius = len(kernel) - 1
     squeeze = image.ndim == 2
@@ -108,6 +109,7 @@ def sharded_pit_fill(image, border_value: float, mesh: ShardMesh,
     the change flag over every shard is read once per budget of 8, 16, 32,
     then 64 sweeps (a sweep at the fixpoint changes nothing, so the
     surplus sweeps never change the result)."""
+    mesh.require_one_process("sharded_pit_fill")
     h = image.shape[0]
     xdim = mesh.shape["x"]
     if h % xdim:

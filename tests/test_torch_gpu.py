@@ -5,7 +5,7 @@ and on the CPU must give equal bits wherever the CPU tests demand equal bits
 of the two packages (that shows that no TF32, no FMA contraction and no
 atomic float add leaked in), and ``detect`` in both routes at 512^2. Last,
 ``parallel/`` on the card: four shards on one card, and one card a shard
-where the host has four.
+where the host has four, in one process and across two.
 
 These tests import neither jax nor the JAX package, so they run on a CUDA
 host without JAX; there the repository's conftest (which imports jax) is
@@ -647,3 +647,30 @@ class TestShardedOnCard:
         assert masks["object_based_shadows"].any() and status == want_status
         for name, m in want.items():
             assert np.array_equal(masks[name], m), name
+
+    def test_two_processes_bit_equal_to_one(self, cuda_device, tmp_path, separate):
+        """The sharded MG-PCG on a (1,4) mesh of two processes of two shards,
+        fresh interpreters on the card, against the same mesh in one
+        process: x, iterations and residuals bit-equal. Four shards on one
+        card go over gloo (pinned host buffers); one card a shard over
+        NCCL (skipped on a host with fewer than four cards)."""
+        from satellite_approximation_tpu_torch.parallel.mesh import ShardMesh
+        from satellite_approximation_tpu_torch.parallel.multihost import free_port, run_processes
+
+        import multihost_workers as W
+
+        devices = _shard_devices(cuda_device, 4, separate)
+        shape = (1, 4)
+        coordinator = f"127.0.0.1:{free_port()}"
+        run_processes([[W.__file__, "solve", "--coordinator", coordinator,
+                        "--num-processes", "2", "--process-id", str(p), "--shape", "1", "4",
+                        "--out", str(tmp_path), "--device", "cuda"] for p in range(2)],
+                      timeout_s=300.0, env={} if separate else {"CUDA_VISIBLE_DEVICES": "0"})
+        outs = [dict(np.load(tmp_path / f"solve_{p}.npz")) for p in range(2)]
+        want = W.solve(ShardMesh(shape, ("b", "x"), devices), shape)
+        assert str(outs[0]["backend"]) == ("nccl" if separate else "gloo")
+        for out in outs:
+            assert int(out["iterations"]) == int(want["iterations"]) > 0
+            np.testing.assert_array_equal(out["rel"], want["rel"])
+        np.testing.assert_array_equal(outs[0]["x"], want["x"])
+        assert np.all(want["rel"] <= 1e-6)

@@ -1,6 +1,7 @@
 """Static checks of the PyTorch port's sources: the repository's stdlib-AST
 lint (tests/test_static_analysis.py), no import of jax or of the JAX
-package anywhere in the port, chip_smoke.py or chip_profile.py, no
+package anywhere in the port, chip_smoke.py, chip_profile.py or the
+multi-process test workers, no
 ``torch.compile`` (the port's arithmetic is eager ops, rounded one by one),
 no handler in chip_smoke.py that could catch a failed phase while the run
 goes on, and console scripts of the port that point into the port."""
@@ -15,7 +16,8 @@ from test_static_analysis import _module_lint
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "satellite_approximation_tpu_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "chip_profile.py"]
+SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "chip_profile.py",
+                                        REPO / "tests" / "multihost_workers.py"]
 IDS = [str(p.relative_to(REPO)) for p in SOURCES]
 
 
@@ -63,25 +65,25 @@ def test_detection_modules_are_covered():
         "models/detection/pipeline.py", "indices.py", "models/closest.py",
         "utils/imageio.py", "utils/rasterio_.py", "utils/compute.py", "utils/__init__.py",
         "cli/__init__.py", "cli/laplace_main.py", "cli/poisson_main.py",
-        "cli/cloud_detection_main.py",
+        "cli/cloud_detection_main.py", "utils/roofline.py",
     ):
         assert f"satellite_approximation_tpu_torch/{rel}" in have, rel
 
 
 def test_parallel_modules_are_covered():
     """Every module of the multi-device package is linted and held to import
-    no jax, as the JAX package's parallel/ has them (multihost.py aside)."""
+    no jax, as the JAX package's parallel/ has them."""
     have = set(IDS)
     for name in ("__init__", "mesh", "collectives", "halo", "solver", "mg", "fill", "stencils",
-                 "detect", "dryrun"):
+                 "detect", "dryrun", "multihost"):
         assert f"satellite_approximation_tpu_torch/parallel/{name}.py" in have, name
 
 
 def test_chip_smoke_phases_cannot_fail_quietly():
     """Every phase raises on failure and nothing catches it: the script has
     no bare ``except`` and no handler for ``Exception`` / ``BaseException``,
-    and ``main`` runs the detection, entry-point and multi-device phases
-    beside the others."""
+    and ``main`` runs the detection, entry-point, multi-device and
+    multi-process phases beside the others."""
     path = REPO / "chip_smoke.py"
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -93,7 +95,7 @@ def test_chip_smoke_phases_cannot_fail_quietly():
     called = {n.func.id for n in ast.walk(main) if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)}
     assert {"phase_device", "phase_build", "phase_kernels", "phase_main_path", "phase_full_tile",
             "phase_general_iterate", "phase_benchmark_paths", "phase_detect",
-            "phase_entry_points", "phase_multi_device"} <= called
+            "phase_entry_points", "phase_multi_device", "phase_multi_process"} <= called
 
 
 def test_console_scripts_point_into_the_port():
