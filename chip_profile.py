@@ -13,13 +13,15 @@ minus the device time over that wall time.
     python3 chip_profile.py --detect [N] [--top N]
     python3 chip_profile.py --multi-device [--top N]
 
-``--detect`` profiles the detection path instead (no hand-written kernel on
-it), at N x N (4096 by default): one warm ``detect`` of
-``chip_smoke.synthesize(N)`` under backend "auto" (the device stages), and
-the pit fill alone on that scene's NIR, each with its device time, its count
-of device launches and the device's idle share; then the pit fill level by
-level, by rounds over the active tiles and by whole-raster sweeps only: the
-seconds, the sweeps, and the cells swept as a multiple of the level's size;
+``--detect`` profiles the detection path instead (kernel 9, the pit fill's
+directional pass, is its one hand-written kernel), at N x N (4096 by
+default): one warm ``detect`` of ``chip_smoke.synthesize(N)`` under backend
+"auto" (the device stages), and the pit fill alone on that scene's NIR,
+each with its device time, its count of device launches and the device's
+idle share; then the pit fill level by level with directional cycles on the
+levels of at least ``_DIRECTIONAL_MIN_SIZE`` cells, on every level and on
+none: the seconds, the cycles, the rounds and sweeps, and the cells swept
+as a multiple of the level's size;
 then the matching in its forms (the separability check and the vector
 form of the affine, the general sweep alone, the vector form alone) and the
 LS geometry stage with no writer thread beside it.
@@ -50,6 +52,7 @@ import chip_smoke as cs
 KINDS = (
     ("port smoothers (jacobi.cu)", ("jacobi_kernel",)),
     ("port residual (residual.cu)", ("residual_kernel",)),
+    ("port directional pass (pitfill.cu)", ("directional_pass_kernel",)),
     ("torch elementwise", ("elementwise_kernel",)),
     ("torch reductions", ("reduce_kernel",)),
     ("copies and fills", ("Memcpy", "Memset")),
@@ -113,19 +116,23 @@ def profile_call(torch, label, fn, reps, card, top, wall_runs=5):
 
 
 def pit_fill_levels(torch, nir, border, card):
-    """The pit fill of ``nir`` level by level, coarsest first, under both
-    schedules of a level's fixpoint: seconds (from the end of the level
-    before, so with the level's upsampling), sweeps and swept cells."""
+    """The pit fill of ``nir`` level by level, coarsest first, under three
+    settings of the one constant that decides where directional cycles run
+    (``_DIRECTIONAL_MIN_SIZE``): as configured, on every level, on none.
+    Per level: seconds (from the end of the level before, so with the
+    level's upsampling), cycles, rounds, sweeps and swept cells."""
     from satellite_approximation_tpu_torch.ops import pitfill
 
     out = {}
-    tiled_from = pitfill._TILED_MIN_SIZE
+    default = pitfill._DIRECTIONAL_MIN_SIZE
+    settings = ((f"cycles from {default} cells", default), ("cycles on every level", 0),
+                ("no cycles", 1 << 62))
     try:
-        for schedule, threshold in (("active tiles", tiled_from), ("whole raster", 1 << 62)):
-            pitfill._TILED_MIN_SIZE = threshold  # the one tuning constant that picks the schedule
+        for schedule, threshold in settings:
+            pitfill._DIRECTIONAL_MIN_SIZE = threshold
             total = 0.0
 
-            def on_level(lvl, shape, rounds):
+            def on_level(lvl, shape, rounds, cycles):
                 nonlocal t0, total
                 torch.cuda.synchronize()
                 dt = time.perf_counter() - t0
@@ -133,9 +140,10 @@ def pit_fill_levels(torch, nir, border, card):
                 sweeps = sum(c for _, c in rounds)
                 swept = sum(cells * c for cells, c in rounds) / (shape[0] * shape[1])
                 cs.log(f"[profile] pit fill, {schedule}, level {lvl} ({shape[0]}x{shape[1]}): "
-                       f"{dt:.3f} s, {len(rounds)} rounds, {sweeps} sweeps, {swept:.0f} "
-                       "level-sizes swept")
-                out[f"{schedule} level {lvl}"] = {"s": dt, "sweeps": sweeps, "swept": swept}
+                       f"{dt:.3f} s, {cycles} cycles, {len(rounds)} rounds, {sweeps} sweeps, "
+                       f"{swept:.0f} level-sizes swept")
+                out[f"{schedule} level {lvl}"] = {"s": dt, "cycles": cycles, "rounds": len(rounds),
+                                                   "sweeps": sweeps, "swept": swept}
                 t0 = time.perf_counter()
 
             torch.cuda.synchronize()
@@ -144,7 +152,7 @@ def pit_fill_levels(torch, nir, border, card):
             cs.log(f"[profile] pit fill, {schedule}: {total:.3f} s in all [{card}]")
             out[schedule] = total
     finally:
-        pitfill._TILED_MIN_SIZE = tiled_from
+        pitfill._DIRECTIONAL_MIN_SIZE = default
     return out
 
 
@@ -315,11 +323,11 @@ def main() -> int:
 
     dev = torch.device("cuda")
     card = cs.phase_device(torch)
+    cs.phase_build(K)
     if args.detect is not None:
         print(json.dumps({"profile": {"card": card,
                                       **profile_detect(torch, dev, card, args.top, args.detect)}}))
         return 0
-    cs.phase_build(K)
     if args.multi_device:
         print(json.dumps({"profile": {"card": card,
                                       **profile_multi_device(torch, dev, card, args.top)}}))

@@ -52,16 +52,31 @@ Phases (each raises on failure, so the run exits non-zero):
    former beside its bound), and ``benchmarks/x_stride_probe.py``'s five
    idioms with its own checks;
 8. detection: ``detect`` from pre-decoded rasters of a synthetic scene to the
-   four mask files and a ``Status``, no hand-written kernel on its path.
-   8a at 1024^2 in both routes (host: native scan and numpy refinement;
-   all-device: torch sweep and refinement): cloud and potential-shadow masks
-   equal, object and final masks at IoU >= 0.995, the scene not trivial; the
+   four mask files and a ``Status``; its one hand-written kernel is kernel
+   9, the pit fill's directional pass (``csrc/pitfill.cu``). 8a at 1024^2
+   in both routes (host: native scan and numpy refinement; all-device:
+   torch sweep and refinement): cloud and potential-shadow masks equal,
+   object and final masks at IoU >= 0.995, the scene not trivial; the
    normalization on the card bit-equal to numpy's f32 division for every
    u8 and u16 value, the pit fill on the card bit-equal to the native
-   priority flood and the device LS reduction within 1e-6 of the host one. 8b at 4096^2 (>= 16
-   Mpix, so backend "auto" takes the device stages), cold and warm, with the
-   stage table, each stage's route and the peak device memory.
-   ``--tile-detect`` runs phases 1 and 8 alone with 8b at 10980^2.
+   priority flood and the device LS reduction within 1e-6 of the host one;
+   kernel 9 bit-equal to its plain version, flag included, in every
+   direction at 1x1, 1x33, 33x1, 37x53, 1373x1374 and 64x17000 (three
+   starts, one with NaNs; two borders; one launch a pass and a launch a
+   batch of rows), one cycle and one budget of 8 at 2048^2, ``pit_fill`` at
+   1024^2 with cycles on every level and at 64x17000 bit-equal to the
+   flood; then at 10980^2, 5490^2, 2745^2 and 4096^2 every direction and a
+   one-cycle budget bit-equal to the plain version, and kernel 9's time a
+   pass in each direction beside its byte bound, a pass in a launch a batch
+   of rows, a one-cycle budget, and one strip of the same height (the row
+   chain alone). 8b at 4096^2 (>= 16 Mpix, so
+   backend "auto" takes the device stages), cold and warm, each with kernel
+   9's launches counted from 0 (it must launch), the stage table, each
+   stage's route and the peak device memory; then the stage's pit fill of
+   that scene level by level (cycles, rounds, sweeps; every level of at
+   least ``_DIRECTIONAL_MIN_SIZE`` cells must run cycles), bit-equal to the
+   native flood of the same NIR and border. ``--tile-detect`` runs phases
+   1, 2 and 8 alone with 8b at 10980^2.
 9. entry points, in process, on the card by default, each with its wall
    time split into reading, solving or detecting, and writing, and its peak
    device memory: 9a ``sat-torch-laplace`` on a 2048^2 RGB PNG and a marker
@@ -101,9 +116,9 @@ Phases (each raises on failure, so the run exits non-zero):
    1e-6); 11c on a host with four cards, 11a with one card a shard over
    NCCL (logged as skipped elsewhere). A worker's failure fails the run.
 
-Each path that a kernel's launch count is read from (phases 4, 6, 7, 9a-9c,
-10a, and 11a and 11b in each worker) runs with every count set to 0 just
-before it.
+Each path that a kernel's launch count is read from (phases 4, 6, 7, 8b,
+9a-9c, 10a, and 11a and 11b in each worker) runs with every count set to 0
+just before it.
 
 After the phases the script prints three lines: ``{"kernels": [...]}``, the
 card's name and power limit as nvidia-smi gives them, and last
@@ -157,6 +172,8 @@ KERNELS = {
     "jacobi_zero_half": (f"{CSRC}/jacobi.cu", f"{PALLAS}:649"),
     "jacobi_v2": (f"{CSRC}/jacobi_v2.cu", "benchmarks/x_kernel_v2.py:187"),
     "stride2": (f"{CSRC}/stride.cu", "benchmarks/x_stride_probe.py:29"),
+    # kernel 9 replaces no TPU kernel: the JAX package's pass is a lax.scan
+    "directional_pass": (f"{CSRC}/pitfill.cu", "satellite_approximation_tpu/ops/pitfill.py:100"),
 }
 STRIDE2_TIMED = "both"  # the mode whose times stand in the kernels line
 # the kernels --against times, each on the bench mask and the 60 % mask
@@ -1131,15 +1148,256 @@ def _iou(a, b):
     return 1.0 if union == 0 else float(np.logical_and(a, b).sum() / union)
 
 
+# 64x17000: wider than the strips an H100 holds at once, so its down and up
+# passes run a launch a batch of rows
+DIRECTIONAL_EDGES = ((1, 1), (1, 33), (33, 1), (37, 53), (1373, 1374), (64, 17000))
+DIRECTIONAL_TIMED = (10980, 5490, 2745, 4096)  # the levels of a full tile, and a 4096^2 scene
+DIRECTIONAL_LINE = 4096  # the shape whose "down" pass stands in the kernels line
+DIRECTIONAL_STRIP = 128  # columns of one strip of csrc/pitfill.cu: a pass with no handoff
+
+
+def directional_case(torch, dev, shape, start, seed=80):
+    """(orig, f) for kernel 9 on the card: orig bench.py's smooth field in
+    (0.1, 0.9), f all ones or the pyramid's seed (orig against the upsampled
+    fixpoint of the level above, as ``pit_fill`` starts a level); start
+    "nan" is the seed with a NaN in ~1 % of the cells of orig and of f."""
+    from satellite_approximation_tpu_torch.ops import pitfill
+
+    orig = torch.from_numpy((0.1 + 0.8 * smooth(*shape, seed)).astype(np.float32)).to(dev)
+    if start == "ones":
+        return orig, torch.ones_like(orig)
+    coarse = pitfill.pit_fill(pitfill._maxpool2(orig), 0.45)
+    up = coarse.repeat_interleave(2, dim=0).repeat_interleave(2, dim=1)[: shape[0], : shape[1]]
+    f = torch.maximum(orig, up)
+    if start == "nan":
+        r = np.random.default_rng(seed)
+        for x in (orig, f):
+            x[torch.from_numpy(r.random(shape) < 0.01).to(dev)] = float("nan")
+    return orig, f
+
+
+@contextlib.contextmanager
+def per_batch(PK):
+    """Kernel 9 as on a raster wider than the strips the card holds at once:
+    a launch a batch of rows, whatever the width."""
+    keep = PK._geometry
+    PK._geometry = lambda index: (*keep(index)[:2], 0)
+    try:
+        yield
+    finally:
+        PK._geometry = keep
+
+
+def directional_pass_ms(torch, PK, orig, f, bv, direction):
+    """Median ms of one pass of kernel 9 in ``direction`` (the column passes
+    on pre-transposed operands, so no transpose is timed; each pass with its
+    zeroing of the strip counters)."""
+    cols, reverse = PK.DIRECTIONS[direction]
+    o, x = (orig.t().contiguous(), f.t().contiguous()) if cols else (orig, f)
+    out = torch.empty_like(x)
+    flag = torch.zeros(1, dtype=torch.int32, device=o.device)
+    progress = torch.zeros(PK._strips(o.shape[1], o.device), dtype=torch.int32, device=o.device)
+    return _median_ms(torch, lambda: (progress.zero_(),
+                                      PK._launch(o, x, out, bv, flag, None, progress, reverse)))
+
+
+def check_directional(torch, dev, card):
+    """Kernel 9 against its plain version on the card, bit for bit with its
+    flag: every direction on the ragged shapes, 1373x1374 and 64x17000 from
+    three starts (one with NaNs) and two borders (inside the data's range
+    and above it), in one launch a pass and in a launch a batch of rows; a
+    full cycle and a budget of 8 at 2048^2, ``pit_fill`` at 1024^2 with the
+    cycles on every level and at 64x17000 against the native priority
+    flood; then at the levels of a full tile and at 4096^2 every direction
+    and a budget of one cycle against the plain version, and each
+    direction's time beside the byte bound, a pass in a launch a batch of
+    rows, a cycle with its transposes, and one strip of the same height (the
+    row chain alone). Returns kernel 9's entry of the kernels line."""
+    from satellite_approximation_tpu_torch import native
+    from satellite_approximation_tpu_torch.ops import pitfill
+    from satellite_approximation_tpu_torch.ops import pitfill_kernels as PK
+    from satellite_approximation_tpu_torch.ops import stencil_kernels as K
+    from satellite_approximation_tpu_torch.utils.roofline import bound_ms, directional_pass_work
+
+    err = 0.0
+
+    def same(got, want):
+        nonlocal err
+        err = max(err, _bitwise(torch, got, want))
+
+    def each_direction(orig, f, bv, label, modes=(contextlib.nullcontext, per_batch)):
+        """Every direction in turn from ``f``, the kernel in each launch mode
+        against the plain pass."""
+        for direction in PK.DIRECTIONS:
+            want, want_changed = PK.directional_pass_plain(orig, f, bv, direction)
+            for mode in modes:
+                with mode(PK):
+                    got, changed = PK.directional_pass(orig, f, bv, direction)
+                same(got, want)
+                if int(changed) != int(want_changed):
+                    raise AssertionError(f"8a kernel 9 {label} {direction}: flag {int(changed)}, "
+                                         f"plain {int(want_changed)}")
+            f = want
+
+    for shape in DIRECTIONAL_EDGES:
+        for start in ("ones", "seed", "nan"):
+            for border in (0.45, 1.5):
+                orig, f = directional_case(torch, dev, shape, start)
+                each_direction(orig, f, torch.tensor(border, device=dev), f"{shape} {start}")
+    log("[8 detect] 8a kernel 9 bit-equal to its plain version, flag included, in every "
+        f"direction at {', '.join('x'.join(map(str, s)) for s in DIRECTIONAL_EDGES)} (starts: all "
+        "ones, the pyramid's seed, the seed with NaNs; borders 0.45 and 1.5), in one launch a "
+        "pass and in a launch a batch of rows")
+
+    orig, f = directional_case(torch, dev, (2048, 2048), "seed")
+    bv = torch.tensor(0.45, device=dev)
+    x = f
+    for direction in PK.DIRECTIONS:
+        x, _ = PK.directional_pass(orig, x, bv, direction)
+    same(x, pitfill._directional_cycle(orig, bv, f))
+    runs = [[], []]
+    got, changed = PK.directional_budget(orig, bv, f, 8, runs[0])
+    want, want_changed = pitfill._directional_budget(orig, bv, f, 8, runs[1])
+    same(got, want)
+    if changed != want_changed or runs[0] != runs[1]:
+        raise AssertionError(f"8a kernel 9 budget: changed {changed} after {runs[0]} cycles, "
+                             f"plain {want_changed} after {runs[1]}")
+    log(f"[8 detect] 8a kernel 9 at 2048x2048: one cycle bit-equal to the plain cycle; a budget "
+        f"of 8 bit-equal to the plain budget ({runs[0][0]} cycles run, changed {changed})")
+
+    n = 1024
+    x = (0.1 + 0.8 * smooth(n, n, 81)).astype(np.float32)
+    keep = pitfill._DIRECTIONAL_MIN_SIZE
+    pitfill._DIRECTIONAL_MIN_SIZE = 0
+    try:
+        levels = []
+        before = K.launch_counts["directional_pass"]
+        got = pitfill.pit_fill(torch.from_numpy(x).to(dev), 0.45,
+                               on_level=lambda *a: levels.append(a)).cpu().numpy()
+        launched = K.launch_counts["directional_pass"] - before
+    finally:
+        pitfill._DIRECTIONAL_MIN_SIZE = keep
+    if not (launched and all(c for *_, c in levels)
+            and np.array_equal(got, native.pit_fill_flood(x, 0.45))):
+        raise AssertionError(f"8a pit_fill {n}x{n} with cycles on every level: {launched} "
+                             f"launches of kernel 9, cycles by level {levels}, or the surface "
+                             "differs from the flood")
+    log(f"[8 detect] 8a pit_fill {n}x{n}, cycles on every level: bit-equal to the native "
+        f"priority flood, {launched} launches of kernel 9, cycles by level "
+        f"{[(lvl, c) for lvl, _, _, c in levels]}")
+    x = (0.1 + 0.8 * smooth(64, 17000, 82)).astype(np.float32)
+    before = K.launch_counts["directional_pass"]
+    got = pitfill.pit_fill(torch.from_numpy(x).to(dev), 0.45).cpu().numpy()
+    launched = K.launch_counts["directional_pass"] - before
+    if not (launched and np.array_equal(got, native.pit_fill_flood(x, 0.45))):
+        raise AssertionError(f"8a pit_fill 64x17000: {launched} launches of kernel 9, or the "
+                             "surface differs from the flood")
+    log(f"[8 detect] 8a pit_fill 64x17000 (one level, wider than the strips the card holds at "
+        f"once): bit-equal to the native priority flood, {launched} launches of kernel 9")
+    del orig, f, x, got, want
+
+    entry = {"max_abs_err": err, "library_ms": None}
+    for n in DIRECTIONAL_TIMED:
+        img = tile_image(torch, n, dev)[0]
+        orig = (img / 10000.0).contiguous()
+        del img
+        f = torch.ones_like(orig)
+        bv = torch.tensor(0.45, device=dev)
+        each_direction(orig, f, bv, f"{n}x{n}", modes=(contextlib.nullcontext,))
+        runs = [[], []]
+        got, changed = PK.directional_budget(orig, bv, f, 1, runs[0])
+        want, want_changed = pitfill._directional_budget(orig, bv, f, 1, runs[1])
+        same(got, want)
+        if changed != want_changed or runs[0] != runs[1]:
+            raise AssertionError(f"8a kernel 9 {n}x{n} budget: changed {changed}, plain "
+                                 f"{want_changed}")
+        del got, want
+        log(f"[8 detect] 8a kernel 9 {n}x{n}: every direction and a budget of one cycle bit-equal "
+            "to the plain version, flags included")
+        times = {d: directional_pass_ms(torch, PK, orig, f, bv, d) for d in PK.DIRECTIONS}
+        with per_batch(PK):
+            batched = directional_pass_ms(torch, PK, orig, f, bv, "down")
+        cycle = _median_ms(torch, lambda: PK.directional_budget(orig, bv, f, 1))  # + orig.T
+        strip = orig[:, :DIRECTIONAL_STRIP].contiguous()
+        chain = directional_pass_ms(torch, PK, strip, torch.ones_like(strip), bv, "down")
+        bound, by = bound_ms(*directional_pass_work(n, n))
+        log(f"[8 detect] 8a kernel 9 {n}x{n}, ms a pass: "
+            + ", ".join(f"{d} {t:.4f}" for d, t in times.items())
+            + f"; bound {bound:.4f} ms by {by} ({bound / max(times.values()):.1%} of the slowest); "
+            f"one strip {n}x{DIRECTIONAL_STRIP} {chain:.4f} ms (the row chain alone, "
+            f"{1e6 * chain / n:.1f} ns a "
+            f"row); down in a launch a batch of rows {batched:.4f} ms; a budget of one cycle (orig's "
+            f"transpose, two of f, one flag read) {cycle:.4f} ms [{card}]")
+        if n == DIRECTIONAL_LINE:
+            plain = _median_ms(torch, lambda: PK.directional_pass_plain(orig, f, bv, "down"),
+                               runs=3)
+            entry.update(ms=times["down"], plain_ms=plain, bound_ms=bound, bound_by=by)
+            log(f"[8 detect] 8a kernel 9 {n}x{n} down: kernel {times['down']:.4f} ms, plain "
+                f"{plain:.4f} ms (a loop over the rows)")
+        del orig, f, strip
+        torch.cuda.empty_cache()
+    return entry
+
+
+def detect_pit_fill(torch, dev, scene, card):
+    """The pit fill of ``detect``'s potential-shadow stage on ``scene``: the
+    normalized NIR and the border the stage computes, through ``pit_fill``
+    on the card, level by level (cycles, rounds and sweeps), against the
+    native priority flood of the same NIR and border. Raises unless every
+    level of at least ``_DIRECTIONAL_MIN_SIZE`` cells ran cycles and the
+    surfaces are equal bit for bit."""
+    from satellite_approximation_tpu_torch import native
+    from satellite_approximation_tpu_torch.config import DEFAULT_DETECTION as cfg
+    from satellite_approximation_tpu_torch.device import divide
+    from satellite_approximation_tpu_torch.models.detection import cloud_mask as cm
+    from satellite_approximation_tpu_torch.models.detection.shadow_mask import _psm_pre
+    from satellite_approximation_tpu_torch.ops import pitfill
+
+    def norm(name, top):
+        return divide(torch.as_tensor(scene[name], device=dev).to(torch.float32), float(top))
+
+    scl = torch.as_tensor(scene["SCL"], device=dev)
+    gen = cm.generate_cloud_mask_ignore_low_probability(
+        norm("CLP", 255), norm("CLD", 100), scl, cfg.cloud_mask, device_output=True)
+    nir = norm("B08", 65535)
+    border, _ = _psm_pre(nir, gen.cloud_mask_no_processing, scl, cfg.shadow_mask)
+    levels = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = pitfill.pit_fill(nir, border, on_level=lambda *a: levels.append(a))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    for lvl, shape, rounds, cycles in levels:
+        log(f"[8 detect] 8b pit fill level {lvl} ({shape[0]}x{shape[1]}): {cycles} directional "
+            f"cycles, {len(rounds)} rounds, {sum(c for _, c in rounds)} sweeps")
+    skipped = [lvl for lvl, shape, _, cycles in levels
+               if shape[0] * shape[1] >= pitfill._DIRECTIONAL_MIN_SIZE and not cycles]
+    if skipped:
+        raise AssertionError(f"8b: levels {skipped} of the pit fill ran no directional cycle")
+    t0 = time.perf_counter()
+    flood = native.pit_fill_flood(nir.cpu().numpy(), float(border))
+    t_host = time.perf_counter() - t0
+    if not np.array_equal(got.cpu().numpy(), flood):
+        raise AssertionError("8b: the pit fill on the card differs from the native flood")
+    log(f"[8 detect] 8b pit fill of the stage's NIR (border {float(border):.6f}) bit-equal to the "
+        f"native priority flood: {dt:.3f} s on the card, the flood {t_host:.3f} s on the host "
+        f"[{card}]")
+
+
 def phase_detect(torch, dev, card, big=4096):
     """Phase 8: ``detect`` through its entry point on the card. 8a at 1024^2
     in both routes, held against each other, with the pit fill against the
-    native priority flood and the device LS reduction against the host one;
-    8b at ``big``^2 (>= 16 Mpix: the device stages under backend "auto"),
-    cold and warm."""
+    native priority flood and the device LS reduction against the host one,
+    and kernel 9 against its plain version (:func:`check_directional`); 8b
+    at ``big``^2 (>= 16 Mpix: the device stages under backend "auto"), cold
+    and warm, each with kernel 9's launches counted from 0, then the stage's
+    pit fill level by level against the flood (:func:`detect_pit_fill`).
+    Returns (kernel 9's entry of the kernels line, its launches in the warm
+    run)."""
     from satellite_approximation_tpu_torch import native
     from satellite_approximation_tpu_torch.config import BIG_SCENE_PIXELS
     from satellite_approximation_tpu_torch.ops import geometry
+    from satellite_approximation_tpu_torch.ops import stencil_kernels as K
     from satellite_approximation_tpu_torch.ops.pitfill import pit_fill
 
     t0 = time.perf_counter()
@@ -1200,6 +1458,7 @@ def phase_detect(torch, dev, card, big=4096):
         log(f"[8 detect] 8a LS point from {zen}: device against host, relative {rel:.3e}")
         if not rel <= 1e-6:
             raise AssertionError(f"8a: LS point differs by {rel}")
+    entry = check_directional(torch, dev, card)
 
     # ---- 8b: full width, the device stages under backend "auto"
     if big * big < BIG_SCENE_PIXELS:
@@ -1207,8 +1466,13 @@ def phase_detect(torch, dev, card, big=4096):
     scene = synthesize(big)
     out = {}
     for label in ("cold", "warm"):
+        K.reset_launch_counts()
         status, masks, timer, dt, peak = run_detect(
             torch, dev, scene, big, ("auto", "auto"), f"8b {label}", card)
+        launches = K.launch_counts["directional_pass"]
+        log(f"[8 detect] 8b {label}: {launches} launches of kernel 9 (directional_pass)")
+        if not launches:
+            raise AssertionError(f"8b {label}: kernel 9 never launched")
         log_stages(timer, f"8b {label}")
         on_host = [stage for stage, route in timer.routes.items()
                    if not route.startswith("device") or "host" in route]
@@ -1222,6 +1486,8 @@ def phase_detect(torch, dev, card, big=4096):
             raise AssertionError(f"8b: {name} differs between two runs on the same scene")
     log(f"[8 detect] 8b detect {big}x{big}: cold {out['cold'][2]:.3f} s, warm "
         f"{out['warm'][2]:.3f} s, peak {out['warm'][3]:.3f} GiB [{card}]")
+    detect_pit_fill(torch, dev, scene, card)
+    return entry, launches
 
 
 # ------------------------------------------------------------------ phase 9: entry points
@@ -2139,7 +2405,7 @@ def main() -> int:
     parser.add_argument("--against", type=Path, default=None,
                         help="a checkout whose compiled kernels to time against this one's")
     parser.add_argument("--tile-detect", action="store_true",
-                        help="phases 1 and 8 alone, 8b at the full 10980^2 tile")
+                        help="phases 1, 2 and 8 alone, 8b at the full 10980^2 tile")
     parser.add_argument("--tile-entry", action="store_true",
                         help="phases 1, 2 and 9 alone, 9b and 9c at the full 10980^2 tile")
     args = parser.parse_args()
@@ -2156,10 +2422,10 @@ def main() -> int:
 
     dev = torch.device("cuda")
     card = phase_device(torch)
+    phase_build(K)
     if args.tile_detect:
         phase_detect(torch, dev, card, big=TILE)
         return 0
-    phase_build(K)
     if args.tile_entry:
         phase_entry_points(torch, K, dev, card, tile=True)
         return 0
@@ -2173,7 +2439,7 @@ def main() -> int:
     counts.update(phase_general_iterate(torch, K, dev, card, system, tile))
     del tile
     counts.update(phase_benchmark_paths(torch, K, dev, card))
-    phase_detect(torch, dev, card)
+    results["directional_pass"], counts["directional_pass"] = phase_detect(torch, dev, card)
     for name, n in phase_entry_points(torch, K, dev, card).items():
         counts[name] = counts.get(name, 0) + n
     for name, n in phase_multi_device(torch, K, dev, card).items():

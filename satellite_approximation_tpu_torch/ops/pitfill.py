@@ -38,11 +38,25 @@ iteration *from above* — the monotone-decreasing sweep converges to the SAME
 unique from-above fixpoint, but only needs to repair block-local detail.
 Each level still runs to its exact fixpoint, so the result is bit-exact with
 the plain iteration, whatever the schedule.
+
+**Directional scan cycles.** On a level of at least
+``_DIRECTIONAL_MIN_SIZE`` cells the sweeps are preceded by cycles of four
+ordered passes (down, up, left, right: ``_directional_cycle``), each of
+which carries drainage information across the whole raster where a sweep
+moves it one pixel; budgets of ``_DIRECTIONAL_BUDGET`` cycles run until one
+ends on a cycle that changes nothing, then the sweeps certify the fixpoint.
+They run on the card only, where a pass is kernel 9 (``ops/pitfill_kernels.py``,
+``csrc/pitfill.cu``). Their plain torch version (a loop over the rows) is
+slower than the sweeps on the CPU, so a CPU level runs none unless
+``_DIRECTIONAL_ON_CPU`` is set, as the tests that hold it to the JAX
+package do; the fixpoint is the same either way.
 """
 
 from __future__ import annotations
 
 import torch
+
+from . import pitfill_kernels
 
 _COARSEST = 64  # stop the pyramid when min dim is at or below this
 _FIRST_BUDGET = 8  # sweeps before the first look at the flag
@@ -51,6 +65,15 @@ _TILED_MIN_SIZE = 1 << 20  # levels with at least this many cells sweep by activ
 _TILE = 256  # tile side
 _HALO = 32  # halo width = sweeps a round (<= _TILE)
 _TILED_MAX_SHARE = 0.6  # above this share of active tiles a round sweeps the whole raster
+# levels of at least this many cells on the card run directional cycles
+# before the sweeps: on an H100 every level of 128^2 or more reached its
+# fixpoint sooner so (3-34x), the 86^2 and 64^2 levels did not
+# (chip_profile.py --detect at 4096^2 and 10980^2); JAX's 4,000,000 was set
+# by a TPU's compile cost
+_DIRECTIONAL_MIN_SIZE = 1 << 14
+# the plain cycles on the CPU lost to the sweeps at every size tried
+_DIRECTIONAL_ON_CPU = False
+_DIRECTIONAL_BUDGET = 8  # cycles between two looks at the flag
 
 
 def _bordered(f: torch.Tensor, border_value) -> torch.Tensor:
@@ -188,6 +211,71 @@ def _fixpoint(original, border_value, f0, rounds: list | None = None):
         budget = min(2 * budget, _MAX_BUDGET)
 
 
+def _shift_row(v: torch.Tensor, d: int, fill: torch.Tensor) -> torch.Tensor:
+    """``v`` (1-D) shifted by ``d``, the vacated cells ``fill`` (a 0-d
+    tensor)."""
+    pad = fill.to(v.dtype).reshape(1).expand(abs(d))
+    if d > 0:
+        return torch.cat([pad, v[:-d]])
+    return torch.cat([v[-d:], pad])
+
+
+def _pass_down(orig, bv, f):
+    """One top-to-bottom propagation: each row absorbs the min of its three
+    upper 8-neighbours from the already-updated row above (the row before
+    the first, and neighbours outside the image, are ``bv``, a 0-d tensor);
+    information crosses the whole raster in one pass, where a sweep moves it
+    one pixel. A loop over the rows: the plain version of kernel 9."""
+    prev = bv.to(f.dtype).expand(f.shape[1])
+    rows = []
+    for o_r, f_r in zip(orig, f):
+        vert = torch.minimum(prev, torch.minimum(_shift_row(prev, 1, bv), _shift_row(prev, -1, bv)))
+        prev = torch.maximum(o_r, torch.minimum(f_r, vert))
+        rows.append(prev)
+    return torch.stack(rows)
+
+
+def _pass(orig, bv, f, direction: str):
+    """One pass in ``direction`` (a key of ``pitfill_kernels.DIRECTIONS``):
+    ``_pass_down`` on the transposes and/or flipped rows."""
+    cols, rev = pitfill_kernels.DIRECTIONS[direction]
+    o, x = (orig.T, f.T) if cols else (orig, f)
+    if rev:
+        o, x = o.flip(0), x.flip(0)
+    out = _pass_down(o, bv, x)
+    if rev:
+        out = out.flip(0)
+    return out.T if cols else out
+
+
+def _directional_cycle(orig, bv, f):
+    """Down, up, left and right passes (Vincent-style ordered
+    reconstruction, split by direction so every step is a whole row or
+    column). Monotone from above: each update is max(orig, min over the cell
+    and a subset of its 8 neighbours), >= the sweep's, so from f >= the
+    fixpoint it stays >= the fixpoint."""
+    for direction in pitfill_kernels.DIRECTIONS:
+        f = _pass(orig, bv, f, direction)
+    return f.contiguous()
+
+
+def _directional_budget(orig, border_value, f0, max_cycles: int, cycles: list | None = None):
+    """Up to ``max_cycles`` cycles, stopping after the first that changes
+    nothing: (f, changed), ``changed`` a Python bool, whether the last cycle
+    changed anything. ``cycles``, where given, takes the number run. Plain
+    torch ops; ``pitfill_kernels.directional_budget`` is the same on the
+    card through kernel 9."""
+    bv = torch.as_tensor(border_value, dtype=torch.float32, device=orig.device)
+    f, changed, run = f0, True, 0
+    while changed and run < max_cycles:
+        nf = _directional_cycle(orig, bv, f)
+        changed = bool((nf != f).any())
+        f, run = nf, run + 1
+    if cycles is not None:
+        cycles.append(run)
+    return f, changed
+
+
 def _maxpool2(x: torch.Tensor) -> torch.Tensor:
     """2x2 max-pool via strided slices, the ragged last row/column pooled
     with -inf."""
@@ -206,9 +294,11 @@ def pit_fill(original: torch.Tensor, border_value, on_level=None) -> torch.Tenso
     or a 0-d tensor on the same device). The counterpart of both ``pit_fill``
     and ``pit_fill_host`` of the JAX package: it keeps two because one
     compiles to a single program and the other is driven from the host; here
-    there is one host-driven schedule. (Its directional row scans before the
-    sweeps of a large level are not ported: a scan is a host loop over every
-    row and column here, ~6 launches each.)
+    there is one host-driven schedule, ``pit_fill_host``'s: on a level of at
+    least ``_DIRECTIONAL_MIN_SIZE`` cells on the card, budgets of
+    directional cycles until one ends unchanged (kernel 9), then the sweeps.
+    A smaller level, or one on the CPU, runs no cycles, as ``pit_fill`` runs
+    none; the fixpoint is the same either way.
 
     Matches PitFillAlgorithm::PitFillAlgorithmFilter
     (PitFillAlgorithm.cpp:120-154) exactly at the fixpoint (the reference's
@@ -216,11 +306,12 @@ def pit_fill(original: torch.Tensor, border_value, on_level=None) -> torch.Tenso
     like the reference, inputs are assumed <= 1 so the all-ones start
     dominates the answer).
 
-    ``on_level``: an optional ``on_level(level, shape, rounds)`` called as
-    each pyramid level reaches its fixpoint, coarsest first, with the
-    level's (cells swept a sweep, sweeps) entries: what a profile reads. It
-    changes nothing of the schedule."""
-    original = original.to(torch.float32)
+    ``on_level``: an optional ``on_level(level, shape, rounds, cycles)``
+    called as each pyramid level reaches its fixpoint, coarsest first, with
+    the level's (cells swept a sweep, sweeps) entries and the number of
+    directional cycles it ran: what a profile reads. It changes nothing of
+    the schedule."""
+    original = original.to(torch.float32).contiguous()
     border_value = torch.as_tensor(border_value, dtype=torch.float32, device=original.device)
 
     pyramid = [original]
@@ -228,15 +319,23 @@ def pit_fill(original: torch.Tensor, border_value, on_level=None) -> torch.Tenso
         pyramid.append(_maxpool2(pyramid[-1]))
 
     f = torch.ones_like(pyramid[-1])  # reference's all-1s start, coarsest level
+    run_cycles = original.is_cuda or _DIRECTIONAL_ON_CPU
     for lvl in range(len(pyramid) - 1, -1, -1):
         orig_l = pyramid[lvl]
         # from any f >= fixpoint the monotone operator is sandwiched
         # F* <= J^k(f) <= J^k(1s) -> F*, and the no-change exit lands exactly
         # on F*
         rounds = None if on_level is None else []
-        f = _fixpoint(orig_l, border_value, torch.maximum(orig_l, f), rounds)
+        cycles = None if on_level is None else []
+        f = torch.maximum(orig_l, f)
+        if run_cycles and orig_l.numel() >= _DIRECTIONAL_MIN_SIZE:
+            changed = True
+            while changed:  # one look at the device a budget
+                f, changed = pitfill_kernels.directional_budget(
+                    orig_l, border_value, f, _DIRECTIONAL_BUDGET, cycles)
+        f = _fixpoint(orig_l, border_value, f, rounds)
         if on_level is not None:
-            on_level(lvl, tuple(orig_l.shape), rounds)
+            on_level(lvl, tuple(orig_l.shape), rounds, sum(cycles))
         if lvl:
             fh, fw = pyramid[lvl - 1].shape
             f = f.repeat_interleave(2, dim=0).repeat_interleave(2, dim=1)[:fh, :fw]

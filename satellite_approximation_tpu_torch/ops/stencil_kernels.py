@@ -19,6 +19,10 @@ wrapper                TPU kernel it replaces                           CUDA sou
 ``stride2``            ``benchmarks/x_stride_probe.py::probe``           stride.cu
 =====================  ==============================================  =============
 
+Kernel 9, the pit fill's directional pass (``csrc/pitfill.cu``), replaces no
+TPU kernel; its wrappers are in ``ops/pitfill_kernels.py`` and build into the
+same library.
+
 Shared contract of the package's kernels (as the TPU kernels'): one (H, W)
 ``invm`` operand, 1/deg on unknowns and 0 elsewhere (:func:`invm_for_kernel`),
 serves every band; the stencil degree is recovered as round(1/invm), exact
@@ -54,7 +58,7 @@ import torch.nn.functional as F
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-_SOURCES = ("jacobi.cu", "jacobi_v2.cu", "residual.cu", "stride.cu")
+_SOURCES = ("jacobi.cu", "jacobi_v2.cu", "residual.cu", "stride.cu", "pitfill.cu")
 _HEADERS = ("stencil.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -67,6 +71,7 @@ MAX_SWEEPS = 8
 launch_counts = {
     "jacobi_zero": 0, "jacobi_zero_half": 0, "jacobi": 0, "jacobi_corr": 0,
     "residual_entry": 0, "residual_pair": 0, "jacobi_v2": 0, "stride2": 0,
+    "directional_pass": 0,  # kernel 9, ops/pitfill_kernels.py
 }
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -148,6 +153,10 @@ def _library() -> ctypes.CDLL:
     lib.sat_residual.restype = i
     lib.sat_stride2.argtypes = [i, p, p, ll, i, i, p]
     lib.sat_stride2.restype = i
+    lib.sat_directional_pass.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.sat_directional_pass.restype = i
+    lib.sat_directional_geometry.argtypes = [p, p, p]
+    lib.sat_directional_geometry.restype = i
     return lib
 
 

@@ -334,6 +334,15 @@ def stride2_bytes(mode: str, shape) -> int:
     return 4 * n * (read + write)
 
 
+def directional_pass_work(h: int, w: int) -> tuple[int, int]:
+    """Kernel 9's work in one directional pass over an (h, w) f32 raster:
+    (bytes, operations). orig and f read once and the output written once,
+    12 B a cell; three mins, a min and a max, and the comparison for the
+    flag, 6 operations a cell. Its rows depend on one another, so the
+    chain of h row steps, not this count, is what a pass waits on."""
+    return 12 * h * w, 6 * h * w
+
+
 def kernel_work(um: torch.Tensor, c: int, sweeps: int, stride2_mode: str = "both") -> dict:
     """Per kernel at (c, H, W) f32 on the mask ``um``: (dense bytes, bytes
     this mask needs, flops). Dense: every operand read once, every output

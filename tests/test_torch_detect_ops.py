@@ -265,7 +265,8 @@ class TestPitFill:
     @pytest.mark.parametrize("tiled", [False, True])
     def test_level_callback_reports_and_changes_nothing(self, monkeypatch, tiled):
         """``on_level`` sees every level, coarsest first, with the sweeps it
-        queued; the surface is the one without a callback."""
+        queued and no directional cycle (none run on the CPU); the surface
+        is the one without a callback."""
         if tiled:
             monkeypatch.setattr(t_pit, "_TILED_MIN_SIZE", 1)
             monkeypatch.setattr(t_pit, "_TILE", 32)
@@ -274,9 +275,10 @@ class TestPitFill:
         levels = []
         got = t_pit.pit_fill(T(x), 0.45, on_level=lambda *a: levels.append(a))
         assert torch.equal(got, t_pit.pit_fill(T(x), 0.45))
-        assert [lvl for lvl, _, _ in levels] == [2, 1, 0]
-        assert [shape for _, shape, _ in levels] == [(50, 43), (100, 85), (200, 170)]
-        for _, shape, rounds in levels:
+        assert [lvl for lvl, _, _, _ in levels] == [2, 1, 0]
+        assert [shape for _, shape, _, _ in levels] == [(50, 43), (100, 85), (200, 170)]
+        for _, shape, rounds, cycles in levels:
+            assert cycles == 0
             assert rounds and all(cells > 0 and count >= 1 for cells, count in rounds)
             if not tiled:  # whole-raster budgets: 8, 16, 32, then 64 sweeps of the level
                 assert [cells for cells, _ in rounds] == [shape[0] * shape[1]] * len(rounds)

@@ -17,6 +17,8 @@ skipped:
 Without ``SAT_GPU_TESTS=1`` and a CUDA device every test here skips.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -326,6 +328,144 @@ class TestJacobiV2OnCard:
         the sweeps) in f32 and bf16, width 1373 the per-cell path."""
         case = v2_window_case(2, width, kind, seed=42)
         self._both_bitwise(*self._operands(cuda_device, case, *dtypes))
+
+
+# 64x17000 and 17000x64: wider than the strips an H100 holds at once, so
+# the passes along the long side run a launch a batch of rows
+DIRECTIONAL_SHAPES = [(1, 1), (1, 33), (33, 1), (37, 53), (1373, 1374), (2048, 2048),
+                      (64, 17000), (17000, 64)]
+
+
+@contextlib.contextmanager
+def _per_batch():
+    """Kernel 9 as on a raster wider than the strips the card holds at once:
+    a launch a batch of rows, whatever the width."""
+    from satellite_approximation_tpu_torch.ops import pitfill_kernels as PK
+
+    keep = PK._geometry
+    PK._geometry = lambda index: (*keep(index)[:2], 0)
+    try:
+        yield
+    finally:
+        PK._geometry = keep
+
+
+def _directional_case(device, shape, start, seed):
+    """(orig, f) on the card: orig a correlated field in (0.1, 0.9), f the
+    pyramid's seed (orig against the upsampled fixpoint of the level above,
+    as ``pit_fill`` hands a level its start) or all ones; "nan" is the seed
+    with a NaN in ~1 % of the cells of orig and of f."""
+    from satellite_approximation_tpu_torch.ops import pitfill
+    from torch_parity import smooth
+
+    orig = torch.from_numpy((0.1 + 0.8 * smooth(*shape, seed=seed)).astype(np.float32)).to(device)
+    if start == "ones":
+        return orig, torch.ones_like(orig)
+    coarse = pitfill.pit_fill(pitfill._maxpool2(orig), 0.45)
+    up = coarse.repeat_interleave(2, dim=0).repeat_interleave(2, dim=1)[: shape[0], : shape[1]]
+    f = torch.maximum(orig, up)
+    if start == "nan":
+        r = np.random.default_rng(seed)
+        for x in (orig, f):
+            x[torch.from_numpy(r.random(shape) < 0.01).to(device)] = float("nan")
+    return orig, f
+
+
+@pytest.mark.gpu
+class TestDirectionalPassOnCard:
+    """Kernel 9 (``csrc/pitfill.cu``) against its plain version: every
+    direction, the pyramid's seed, all ones and the seed with NaNs as
+    starts, a border inside the data's range (0.45) and outside it (1.5
+    above, -0.25 below), in one launch a pass and in a launch a batch of
+    rows."""
+
+    @pytest.mark.parametrize("per_batch", [False, True])
+    @pytest.mark.parametrize("border", [0.45, 1.5, -0.25])
+    @pytest.mark.parametrize("start", ["seed", "ones", "nan"])
+    @pytest.mark.parametrize("shape", DIRECTIONAL_SHAPES)
+    def test_each_direction_bitwise(self, cuda_device, shape, start, border, per_batch):
+        from satellite_approximation_tpu_torch.ops import pitfill_kernels as PK
+
+        orig, f = _directional_case(cuda_device, shape, start, 70)
+        bv = torch.tensor(border, device=cuda_device)
+        for direction in PK.DIRECTIONS:
+            with _per_batch() if per_batch else contextlib.nullcontext():
+                got, changed = PK.directional_pass(orig, f, bv, direction)
+            want, want_changed = PK.directional_pass_plain(orig, f, bv, direction)
+            assert got.device.type == "cuda"
+            assert_bitwise(got, want)
+            assert int(changed) == int(want_changed)
+            f = want
+
+    @pytest.mark.parametrize("per_batch", [False, True])
+    @pytest.mark.parametrize("max_cycles", [1, 8])
+    @pytest.mark.parametrize("shape", [(37, 53), (1373, 1374)])
+    def test_budget_bitwise(self, cuda_device, shape, max_cycles, per_batch):
+        """A budget on the card: the surface, the flag and the cycles run
+        equal the plain budget's, cycles after an unchanged one included."""
+        from satellite_approximation_tpu_torch.ops import pitfill
+        from satellite_approximation_tpu_torch.ops import pitfill_kernels as PK
+
+        orig, f = _directional_case(cuda_device, shape, "seed", 71)
+        runs = [[], []]
+        with _per_batch() if per_batch else contextlib.nullcontext():
+            got, changed = PK.directional_budget(orig, 0.45, f, max_cycles, runs[0])
+        want, want_changed = pitfill._directional_budget(orig, 0.45, f, max_cycles, runs[1])
+        assert_bitwise(got, want)
+        assert changed == want_changed and runs[0] == runs[1]
+
+    def test_launches_counted_and_cpu_raises(self, cuda_device):
+        from satellite_approximation_tpu_torch.ops import pitfill_kernels as PK
+
+        orig, f = _directional_case(cuda_device, (64, 80), "ones", 72)
+        K.reset_launch_counts()
+        PK.directional_pass(orig, f, 0.45, "left")
+        assert K.launch_counts["directional_pass"] == 1
+        PK.directional_budget(orig, 0.45, f, 2)
+        assert K.launch_counts["directional_pass"] == 1 + 2 * 4
+        with pytest.raises(ValueError):
+            PK.directional_pass(orig.cpu(), f, 0.45, "down")
+        with pytest.raises(ValueError):
+            PK.directional_budget(orig, torch.tensor(0.45), f.cpu(), 1)
+        with pytest.raises(ValueError):
+            PK.directional_pass(orig[:, :40], f[:, :40], 0.45, "down")  # not contiguous
+
+    def test_pit_fill_with_cycles_equals_priority_flood(self, cuda_device, monkeypatch):
+        from satellite_approximation_tpu_torch import native
+        from satellite_approximation_tpu_torch.ops import pitfill
+        from torch_parity import smooth
+
+        monkeypatch.setattr(pitfill, "_DIRECTIONAL_MIN_SIZE", 0)  # every level
+        x = (0.1 + 0.8 * smooth(1024, 1024, seed=73)).astype(np.float32)
+        K.reset_launch_counts()
+        levels = []
+        got = pitfill.pit_fill(torch.from_numpy(x).to(cuda_device), 0.45,
+                               on_level=lambda *a: levels.append(a))
+        assert K.launch_counts["directional_pass"] > 0
+        assert len(levels) == 5 and all(cycles > 0 for *_, cycles in levels)
+        assert native.available(), "g++ is needed beside nvcc"
+        assert np.array_equal(got.cpu().numpy(), native.pit_fill_flood(x, 0.45))
+
+    @pytest.mark.parametrize("shape", [(130, 17000), (17000, 130)])
+    def test_pit_fill_wider_than_the_card_holds(self, cuda_device, shape):
+        """A level wider than the strips the card holds at once runs its
+        passes along the long side a launch a batch of rows (3 launches a
+        pass at 130 rows), and the pit fill gives the flood's surface."""
+        from satellite_approximation_tpu_torch import native
+        from satellite_approximation_tpu_torch.ops import pitfill
+        from satellite_approximation_tpu_torch.ops import pitfill_kernels as PK
+        from torch_parity import smooth
+
+        assert PK._strips(17000, cuda_device) > PK._geometry(torch.cuda.current_device())[2]
+        x = (0.1 + 0.8 * smooth(*shape, seed=74)).astype(np.float32)
+        K.reset_launch_counts()
+        levels = []
+        got = pitfill.pit_fill(torch.from_numpy(x).to(cuda_device), 0.45,
+                               on_level=lambda *a: levels.append(a))
+        assert levels[-1][1] == shape and levels[-1][3] > 0
+        assert K.launch_counts["directional_pass"] > 0
+        assert native.available(), "g++ is needed beside nvcc"
+        assert np.array_equal(got.cpu().numpy(), native.pit_fill_flood(x, 0.45))
 
 
 @pytest.mark.gpu

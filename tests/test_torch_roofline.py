@@ -171,3 +171,12 @@ def test_measure_takes_the_median(monkeypatch):
     monkeypatch.setattr(R.time, "perf_counter", lambda: next(ticks))
     assert R.measure(lambda: calls.append(1), n=3, warmup=2) == pytest.approx(0.2)
     assert len(calls) == 5
+
+
+def test_directional_pass_work():
+    """Kernel 9 at a full tile: 12 B a cell, 1.447 GB, bound by bytes at
+    0.432 ms."""
+    nbytes, ops = R.directional_pass_work(10980, 10980)
+    assert nbytes == 12 * 10980 * 10980 == 1_446_724_800 and ops == 6 * 10980 * 10980
+    ms, by = R.bound_ms(nbytes, ops)
+    assert by == "bytes" and abs(ms - 0.43186) < 1e-4

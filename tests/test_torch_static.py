@@ -34,6 +34,7 @@ def _imported_roots(tree: ast.AST) -> set[str]:
 def test_sources_found():
     assert len(SOURCES) >= 15
     assert (PORT / "csrc" / "jacobi.cu").exists() and (PORT / "csrc" / "residual.cu").exists()
+    assert (PORT / "csrc" / "pitfill.cu").exists()
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=IDS)
@@ -56,7 +57,8 @@ def test_detection_modules_are_covered():
     have = set(IDS)
     for rel in (
         "ops/masks.py", "ops/stats.py", "ops/image.py", "ops/blur.py", "ops/morphology.py",
-        "ops/geometry.py", "ops/pitfill.py", "ops/components.py", "native/__init__.py",
+        "ops/geometry.py", "ops/pitfill.py", "ops/pitfill_kernels.py", "ops/components.py",
+        "native/__init__.py",
         "utils/geotiff.py", "utils/tiffmb.py", "utils/types.py", "utils/profiling.py",
         "utils/errors.py", "utils/dates.py", "utils/filesystem.py", "utils/db.py", "utils/loader.py",
         "models/detection/cloud_mask.py", "models/detection/shadow_mask.py",
