@@ -1,0 +1,6 @@
+"""fill_mpix_s: band-pixels of every completed call over the window's wall
+time, from the first call's start to the last call's end (host clock)."""
+
+
+def read(run):
+    return run.units() / run.window_s / 1e6
