@@ -566,7 +566,8 @@ def match_clouds_shadows(
                         min_support=config.min_support_pixels,
                     )
 
-                with timer.stage(f"matching/sweep {wb}x{hb} n={len(sel)}"):
+                with timer.stage(f"matching/sweep {wb}x{hb} n={len(sel)}", "matching/sweep",
+                                 wb=wb, hb=hb, n=len(sel)):
                     # the heights go in passes of bounded window cells
                     cells = max(len(sel) * wb * hb, 1)
                     ch = max(1, min(int(config.height_chunk), int(_SWEEP_PASS_CELLS // cells)))
@@ -575,7 +576,8 @@ def match_clouds_shadows(
                 best_idx = np.argmax(sims, axis=0)  # first max, like `>` keeps first
                 best_sim = sims[best_idx, np.arange(len(sel))]
 
-                with timer.stage(f"matching/detail {wb}x{hb} n={len(sel)}"):
+                with timer.stage(f"matching/detail {wb}x{hb} n={len(sel)}", "matching/detail",
+                                 wb=wb, hb=hb, n=len(sel)):
                     at_best = (best_idx, np.arange(len(sel)))
                     detail = _bucket_detail(
                         cmask_t, psm_t, cmap_t, ids, **operands(at_best),

@@ -28,6 +28,7 @@ from ...utils.filesystem import multispectral_folders
 from ...utils.geotiff import GeoTIFF, write_geotiff
 from ...utils.log import create_logger
 from ...utils.perf import Stopwatch
+from ...utils import profiling
 from ...utils.profiling import StageTimer
 from ...utils.types import percent_non_zero
 from . import cloud_mask as cm
@@ -214,6 +215,13 @@ def detect(
     ``device``: ``None`` is the CUDA device (raises without one); ``"cpu"``
     runs the same stages on the CPU.
     """
+    with profiling.call("detect"):
+        return _detect(params, diagonal_distance, skip_shadow_detection, use_cache, config,
+                       timer, inputs, mesh, device)
+
+
+def _detect(params, diagonal_distance, skip_shadow_detection, use_cache, config, timer, inputs,
+            mesh, device):
     from ...parallel.mesh import resolve_mesh
 
     dev = resolve_device(device)
@@ -296,7 +304,7 @@ def detect(
                 _write_mask(arr, out_path, params.nir_path)
 
         if overlap:
-            pending_writes.append(_get_overlap_executor().submit(task))
+            pending_writes.append(_get_overlap_executor().submit(profiling.carry(task)))
         else:
             task()
 
@@ -328,7 +336,7 @@ def detect(
         if overlap:
             # host-CPU flood runs on a worker while the device computes the
             # shadow mask; joined right after (matching needs both)
-            partition_fut = _get_overlap_executor().submit(_partition_task)
+            partition_fut = _get_overlap_executor().submit(profiling.carry(_partition_task))
         else:
             cloud_map, clouds = _partition_task()
 

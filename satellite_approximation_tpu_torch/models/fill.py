@@ -31,6 +31,7 @@ from ..ops.stencil_kernels import (
     residual_pair,
     two_sum,
 )
+from ..utils import profiling
 from . import multigrid
 from .cg import CGResult, _cg_core, chunk_elements, neighbor_degree_tensor, shift_sum
 
@@ -96,100 +97,103 @@ def _fused_refine_solve(
     Returns (x_hi, x_lo, iterations, rnorm, bnorm) with the norms per band as
     host f64 arrays.
     """
-    umf = umask.to(torch.float32)
-    k = (4.0 - deg.to(torch.float32)) * umf  # in {0, 1, 2} on unknowns
-
-    if mode == "rhs":
-        b_hi = img32.to(torch.float32)
-        b_lo = (img32 - b_hi.to(torch.float64)).to(torch.float32)
-        b_hi = b_hi * umf
-        b_lo = b_lo * umf
-        x_hi = rep32.to(torch.float32)
-        x_lo = (rep32 - x_hi.to(torch.float64)).to(torch.float32)
-        x_hi = x_hi * umf
-        x_lo = x_lo * umf
-    else:
-        img32 = img32.to(torch.float32)
-        g = rep32.to(torch.float32) if mode == "poisson" else None
-        x_hi = (img32 if g is None else g) * umf
-        x_lo = torch.zeros_like(x_hi)
-
-    if mode == "laplace":
-        # the kernel route: entry residual and b from the image, then one
-        # residual kernel per pass
-        invm0 = invm_for_kernel(umask, deg)
-        r_hi, b_full = residual_entry(img32, invm0)
-        bnorm = _norm64(b_full)
-        rnorm = _norm64(r_hi)
-        del b_full
-
-        def residual(x_hi, x_lo):
-            r = residual_pair(img32, x_hi, x_lo, invm0)
-            return r, _norm64(r)
-
-    else:
-        known = None if mode == "rhs" else img32 * (1.0 - umf)
-
-        def residual(x_hi, x_lo):
-            """r = (b - A(x_hi + x_lo)) * m: one exact cascade over the hi
-            terms; the lo terms contribute at eps^2 and sum in plain f32."""
-            if mode == "rhs":
-                hi_terms = list(_shift_taps(x_hi)) + [b_hi, -4.0 * x_hi, k * x_hi]
-                lo_extra = b_lo
-            else:
-                y_hi = known + x_hi  # disjoint supports: exact
-                hi_terms = list(_shift_taps(y_hi)) + [-4.0 * x_hi, k * x_hi]
-                hi_terms += [-t for t in _shift_taps(g)] + [4.0 * g, -(k * g)]
-                lo_extra = None
-            s, c = cascade(hi_terms)
-            l1, l2, l3, l4 = _shift_taps(x_lo)
-            lo = l1 + l2 + l3 + l4 - 4.0 * x_lo + k * x_lo
-            if lo_extra is not None:
-                lo = lo + lo_extra
-            r = (s + (c + lo)) * umf
-            return r, _norm64(r)
+    with profiling.span("fill.entry_residual"):
+        umf = umask.to(torch.float32)
+        k = (4.0 - deg.to(torch.float32)) * umf  # in {0, 1, 2} on unknowns
 
         if mode == "rhs":
-            bnorm = _norm64(b_hi)
+            b_hi = img32.to(torch.float32)
+            b_lo = (img32 - b_hi.to(torch.float64)).to(torch.float32)
+            b_hi = b_hi * umf
+            b_lo = b_lo * umf
+            x_hi = rep32.to(torch.float32)
+            x_lo = (rep32 - x_hi.to(torch.float64)).to(torch.float32)
+            x_hi = x_hi * umf
+            x_lo = x_lo * umf
         else:
-            # ||b|| in plain f32 (f64-accumulated): it only scales the target
-            b = shift_sum(known) + (4.0 - k) * g - shift_sum(g)
-            bnorm = _norm64(b * umf)
-            del b
-        r_hi, rnorm = residual(x_hi, x_lo)
+            img32 = img32.to(torch.float32)
+            g = rep32.to(torch.float32) if mode == "poisson" else None
+            x_hi = (img32 if g is None else g) * umf
+            x_lo = torch.zeros_like(x_hi)
 
-    if use_multigrid:
-        tol_floor = (
-            multigrid.INNER_TOL_FLOOR_F32
-            if precond_dtype == torch.float32
-            else multigrid.INNER_TOL_FLOOR
-        )
-        prebuilt = multigrid.prebuild(hier, precond_dtype)
-    else:
-        tol_floor = 5e-8
-        prebuilt = None
+        if mode == "laplace":
+            # the kernel route: entry residual and b from the image, then one
+            # residual kernel per pass
+            invm0 = invm_for_kernel(umask, deg)
+            r_hi, b_full = residual_entry(img32, invm0)
+            bnorm = _norm64(b_full)
+            rnorm = _norm64(r_hi)
+            del b_full
 
-    bnorm = bnorm.cpu().numpy()
-    rnorm = rnorm.cpu().numpy()
+            def residual(x_hi, x_lo):
+                r = residual_pair(img32, x_hi, x_lo, invm0)
+                return r, _norm64(r)
+
+        else:
+            known = None if mode == "rhs" else img32 * (1.0 - umf)
+
+            def residual(x_hi, x_lo):
+                """r = (b - A(x_hi + x_lo)) * m: one exact cascade over the hi
+                terms; the lo terms contribute at eps^2 and sum in plain f32."""
+                if mode == "rhs":
+                    hi_terms = list(_shift_taps(x_hi)) + [b_hi, -4.0 * x_hi, k * x_hi]
+                    lo_extra = b_lo
+                else:
+                    y_hi = known + x_hi  # disjoint supports: exact
+                    hi_terms = list(_shift_taps(y_hi)) + [-4.0 * x_hi, k * x_hi]
+                    hi_terms += [-t for t in _shift_taps(g)] + [4.0 * g, -(k * g)]
+                    lo_extra = None
+                s, c = cascade(hi_terms)
+                l1, l2, l3, l4 = _shift_taps(x_lo)
+                lo = l1 + l2 + l3 + l4 - 4.0 * x_lo + k * x_lo
+                if lo_extra is not None:
+                    lo = lo + lo_extra
+                r = (s + (c + lo)) * umf
+                return r, _norm64(r)
+
+            if mode == "rhs":
+                bnorm = _norm64(b_hi)
+            else:
+                # ||b|| in plain f32 (f64-accumulated): it only scales the target
+                b = shift_sum(known) + (4.0 - k) * g - shift_sum(g)
+                bnorm = _norm64(b * umf)
+                del b
+            r_hi, rnorm = residual(x_hi, x_lo)
+
+        if use_multigrid:
+            tol_floor = (
+                multigrid.INNER_TOL_FLOOR_F32
+                if precond_dtype == torch.float32
+                else multigrid.INNER_TOL_FLOOR
+            )
+            prebuilt = multigrid.prebuild(hier, precond_dtype)
+        else:
+            tol_floor = 5e-8
+            prebuilt = None
+
+        bnorm = bnorm.cpu().numpy()
+        rnorm = rnorm.cpu().numpy()
     target = np.maximum(tolerance * bnorm, _TINY64)
     step = 0
     iters = 0
     while step < refinement_steps and (rnorm > target).any():
-        needed = np.min(target / np.maximum(rnorm, 1e-300))
-        inner_tol = np.float32(np.clip(0.5 * needed, tol_floor, 0.5))
-        z32 = torch.zeros_like(r_hi)
-        if use_multigrid:
-            d, it, _ = multigrid._pcg_core(
-                r_hi, z32, inner_tol, hier, max_iterations=max_iterations,
-                precond_dtype=precond_dtype, prebuilt=prebuilt,
-            )
-        else:
-            d, it, _ = _cg_core(r_hi, z32, umask, deg, inner_tol, max_iterations)
-        x_hi, e = two_sum(x_hi, d * umf)
-        x_lo = x_lo + e
-        del d, e
-        r_hi, rnorm = residual(x_hi, x_lo)
-        rnorm = rnorm.cpu().numpy()
+        with profiling.span("fill.pass"):
+            needed = np.min(target / np.maximum(rnorm, 1e-300))
+            inner_tol = np.float32(np.clip(0.5 * needed, tol_floor, 0.5))
+            z32 = torch.zeros_like(r_hi)
+            if use_multigrid:
+                d, it, _ = multigrid._pcg_core(
+                    r_hi, z32, inner_tol, hier, max_iterations=max_iterations,
+                    precond_dtype=precond_dtype, prebuilt=prebuilt,
+                )
+            else:
+                d, it, _ = _cg_core(r_hi, z32, umask, deg, inner_tol, max_iterations)
+            x_hi, e = two_sum(x_hi, d * umf)
+            x_lo = x_lo + e
+            del d, e
+            r_hi, rnorm = residual(x_hi, x_lo)
+            rnorm = rnorm.cpu().numpy()
+            profiling.count("pcg_iterations", it)
         step += 1
         iters += it
     return x_hi, x_lo, iters, rnorm, bnorm
@@ -261,13 +265,17 @@ def laplace_fill(
         rep = _host_stack(replacement)
         rep = rep[None] if squeeze else rep
     mode = "laplace" if replacement is None else "poisson"
-    umask_t = as_tensor(umask, dev, torch.bool)
+    with profiling.span("fill.upload"):
+        umask_t = as_tensor(umask, dev, torch.bool)
 
     c, h, w = img.shape
     limit = max_chunk_elements or chunk_elements(dev)
     bands_per_chunk = max(int(limit // (h * w)), 1)
     deg = neighbor_degree_tensor(h, w, dev)
-    hier = multigrid._device_hierarchy(umask_t, deg, dev) if use_multigrid else None
+    hier = None
+    if use_multigrid:
+        with profiling.span("fill.hierarchy", hierarchy_builds=0):
+            hier = multigrid._device_hierarchy(umask_t, deg, dev)
 
     if masked_values_output:
         iy, ix = torch.nonzero(umask_t, as_tuple=True)
@@ -282,8 +290,9 @@ def laplace_fill(
     err = 0.0
     for s in range(0, c, bands_per_chunk):
         e = min(s + bands_per_chunk, c)
-        chunk = _upload(img, s, e, dev)
-        rchunk = chunk if rep is None else _upload(rep, s, e, dev)
+        with profiling.span("fill.upload"):
+            chunk = _upload(img, s, e, dev)
+            rchunk = chunk if rep is None else _upload(rep, s, e, dev)
         x_hi, x_lo, iters, rnorm, bnorm = _fused_refine_solve(
             chunk, rchunk, umask_t, deg, hier, tolerance,
             max_iterations=max_iterations,
@@ -296,7 +305,8 @@ def laplace_fill(
         total_iters += iters
         err = max(err, float(np.max(rnorm / np.maximum(bnorm, 1e-300))))
         if masked_values_output:
-            masked_vals.append(_gather_masked(x_hi, x_lo, iy, ix).cpu().numpy())
+            with profiling.span("fill.fetch"):
+                masked_vals.append(_gather_masked(x_hi, x_lo, iy, ix).cpu().numpy())
             continue
         out = _composite(chunk, x_hi, x_lo, umask_t)
         del chunk, x_hi, x_lo
@@ -313,5 +323,6 @@ def laplace_fill(
     if squeeze and filled is not None:
         filled = filled[0]
     if not device_output and filled is not None:
-        filled = filled.cpu().numpy()
+        with profiling.span("fill.fetch"):
+            filled = filled.cpu().numpy()
     return CGResult(filled, total_iters, err)

@@ -23,6 +23,7 @@ from ..utils.db import ApproxMethod, DataBase
 from ..utils.filesystem import multispectral_folders
 from ..utils.geotiff import GeoTIFF, write_geotiff
 from ..utils.log import create_logger
+from ..utils import profiling
 from ..utils.perf import Stopwatch
 from . import multigrid
 from .cg import CGResult, solve_banded_chunks, solve_masked_poisson
@@ -62,6 +63,11 @@ def solve_matrix(
     """Fill invalid pixels of (H,W) or (C,H,W) ``images``; returns
     (filled_images, solve_info). The solve runs to near machine precision,
     like the reference's default-tolerance Eigen CG."""
+    with profiling.call("fill"):
+        return _solve_matrix(images, invalid_mask, config, device)
+
+
+def _solve_matrix(images, invalid_mask, config: SolverConfig, device):
     dev = resolve_device(device)
     images = np.asarray(images, dtype=np.float64)
     squeeze = images.ndim == 2
@@ -73,13 +79,15 @@ def solve_matrix(
             f"Image and mask sizes differ ({images.shape[-2:]} vs {invalid.shape})"
         )
 
-    umask = _laplace_unknowns(invalid)
-    if not umask.any():
+    with profiling.span("fill.unknowns"):
+        umask = _laplace_unknowns(invalid)
+        empty = not umask.any()
+        n = 0 if empty else int(umask.sum())
+    if empty:
         _logger.info("Could not perform approximation: no invalid pixels")
         out = images[0] if squeeze else images
         return out, CGResult(out, 0, 0.0)
 
-    n = int(umask.sum())
     use_mg = config.use_multigrid and n >= config.mg_threshold_pixels
     # multi-device route (SolverConfig.mesh): multigrid-scale solves shard
     # over the mesh's shards, bands over 'b', rows over 'x' with halo
@@ -100,25 +108,30 @@ def solve_matrix(
     # device path: when the f64 input is exactly representable in f32 (every
     # u8/u16-derived raster), upload f32 and fetch back only the n solved
     # values
-    img32 = images.astype(np.float32)
-    if config.device_assembly == "force" or (
-        config.device_assembly == "auto" and np.array_equal(img32.astype(np.float64), images)
-    ):
+    with profiling.span("fill.exactness_check"):
+        img32 = images.astype(np.float32)
+        exact = config.device_assembly == "force" or (
+            config.device_assembly == "auto" and np.array_equal(img32.astype(np.float64), images)
+        )
+    if exact:
+        # looked up at call time: a caller may wrap models.fill.laplace_fill
         from .fill import laplace_fill
 
-        result = laplace_fill(
-            img32,
-            umask,
-            tolerance=1e-9 if use_mg else 1e-7,  # ~ Eigen's machine-eps default
-            refinement_steps=max(config.refinement_steps, 4),
-            max_iterations=200 if use_mg else 4 * n + 64,
-            use_multigrid=use_mg,
-            masked_values_output=True,
-            device=dev,
-        )
-        filled = images.copy()
-        ys, xs = np.nonzero(umask)
-        filled[:, ys, xs] = result.x  # (C, n)
+        with profiling.span("fill.laplace_fill"):
+            result = laplace_fill(
+                img32,
+                umask,
+                tolerance=1e-9 if use_mg else 1e-7,  # ~ Eigen's machine-eps default
+                refinement_steps=max(config.refinement_steps, 4),
+                max_iterations=200 if use_mg else 4 * n + 64,
+                use_multigrid=use_mg,
+                masked_values_output=True,
+                device=dev,
+            )
+        with profiling.span("fill.scatter_back"):
+            filled = images.copy()
+            ys, xs = np.nonzero(umask)
+            filled[:, ys, xs] = result.x  # (C, n)
         out = filled[0] if squeeze else filled
         return out, result
 

@@ -41,6 +41,7 @@ import torch.nn.functional as F
 
 from ..device import as_tensor, resolve_device
 from ..ops.stencil_kernels import invm_for_kernel, jacobi, jacobi_corr, jacobi_zero, restrict_rows
+from ..utils import profiling
 from .cg import CGResult, masked_laplacian, neighbor_degree, neighbor_degree_tensor
 
 _OMEGA = 0.8
@@ -353,6 +354,7 @@ def _device_hierarchy(umask, deg: torch.Tensor, device: torch.device) -> Hierarc
         if len(levels) == 1 and coarse_inv is not None:
             coarse_inv = _dense_coarse_inverse(levels[0][0], deg)
         return Hierarchy(levels, coarse_inv)
+    profiling.count("hierarchy_builds")
     umask_t = as_tensor(umask, device, torch.bool)
     levels = ((umask_t, deg),) + _build_levels(umask_t)
     m_c, d_c = levels[-1]

@@ -56,6 +56,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import profiling
 from . import pitfill_kernels
 
 _COARSEST = 64  # stop the pyramid when min dim is at or below this
@@ -289,6 +290,17 @@ def _maxpool2(x: torch.Tensor) -> torch.Tensor:
     )
 
 
+def _level_counts(orig_l: torch.Tensor, rounds: list, cycles: list) -> dict:
+    """What one pyramid level did: its cells, the directional cycles it ran
+    (kernel 9's work), its sweeps and the cells they swept."""
+    return {
+        "cells": orig_l.numel(),
+        "cycles": sum(cycles),
+        "sweeps": sum(n for _, n in rounds),
+        "cells_swept": sum(cells * n for cells, n in rounds),
+    }
+
+
 def pit_fill(original: torch.Tensor, border_value, on_level=None) -> torch.Tensor:
     """Fill every pit of ``original`` relative to ``border_value`` (a number
     or a 0-d tensor on the same device). The counterpart of both ``pit_fill``
@@ -310,7 +322,8 @@ def pit_fill(original: torch.Tensor, border_value, on_level=None) -> torch.Tenso
     called as each pyramid level reaches its fixpoint, coarsest first, with
     the level's (cells swept a sweep, sweeps) entries and the number of
     directional cycles it ran: what a profile reads. It changes nothing of
-    the schedule."""
+    the schedule. Each level is a span ``pitfill.level`` whose counts are
+    the same numbers (``_level_counts``)."""
     original = original.to(torch.float32).contiguous()
     border_value = torch.as_tensor(border_value, dtype=torch.float32, device=original.device)
 
@@ -325,17 +338,20 @@ def pit_fill(original: torch.Tensor, border_value, on_level=None) -> torch.Tenso
         # from any f >= fixpoint the monotone operator is sandwiched
         # F* <= J^k(f) <= J^k(1s) -> F*, and the no-change exit lands exactly
         # on F*
-        rounds = None if on_level is None else []
-        cycles = None if on_level is None else []
-        f = torch.maximum(orig_l, f)
-        if run_cycles and orig_l.numel() >= _DIRECTIONAL_MIN_SIZE:
-            changed = True
-            while changed:  # one look at the device a budget
-                f, changed = pitfill_kernels.directional_budget(
-                    orig_l, border_value, f, _DIRECTIONAL_BUDGET, cycles)
-        f = _fixpoint(orig_l, border_value, f, rounds)
+        rounds, cycles = [], []
+        with profiling.span("pitfill.level", level=lvl):
+            f = torch.maximum(orig_l, f)
+            if run_cycles and orig_l.numel() >= _DIRECTIONAL_MIN_SIZE:
+                changed = True
+                while changed:  # one look at the device a budget
+                    f, changed = pitfill_kernels.directional_budget(
+                        orig_l, border_value, f, _DIRECTIONAL_BUDGET, cycles)
+            f = _fixpoint(orig_l, border_value, f, rounds)
+            done = _level_counts(orig_l, rounds, cycles)
+            for name, n in done.items():
+                profiling.count(name, n)
         if on_level is not None:
-            on_level(lvl, tuple(orig_l.shape), rounds, sum(cycles))
+            on_level(lvl, tuple(orig_l.shape), rounds, done["cycles"])
         if lvl:
             fh, fw = pyramid[lvl - 1].shape
             f = f.repeat_interleave(2, dim=0).repeat_interleave(2, dim=1)[:fh, :fw]

@@ -365,11 +365,18 @@ class TestTypesAndProfiling:
                 pass
         assert len(calls) == 1 and timer.stages[0][0] == "a"
 
-    def test_trace_and_annotation(self, tmp_path):
-        with profiling.device_trace(tmp_path / "trace"):
-            with profiling.annotate("span"):
+    def test_span_on_the_profilers_timeline(self):
+        """A span is a range among the profiler's host events, around the
+        operations run inside it."""
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            with profiling.span("detect.cloud mask"):
                 torch.ones(8).sum()
-        assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
+        events = {e.name(): e for e in prof.profiler.kineto_results.events()}
+        outer, inner = events["detect.cloud mask"], events["aten::sum"]
+        assert outer.start_ns() <= inner.start_ns()
+        assert inner.start_ns() + inner.duration_ns() <= outer.start_ns() + outer.duration_ns()
 
 
 def _build_in(build_dir: str, queue) -> None:

@@ -1,0 +1,232 @@
+"""The port's tracing layer (``utils/profiling.py``) on the CPU: spans,
+counters and call ids recorded only under ``torch.profiler``, their place on
+the profiler's timeline, worker threads, the fill's and the pit fill's spans,
+and ``StageTimer``'s report."""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from satellite_approximation_tpu_torch.config import DEFAULT_SOLVER
+from satellite_approximation_tpu_torch.models import laplace, multigrid
+from satellite_approximation_tpu_torch.models.detection import pipeline
+from satellite_approximation_tpu_torch.ops import pitfill
+from satellite_approximation_tpu_torch.utils import profiling
+
+
+@pytest.fixture(autouse=True)
+def _empty_records():
+    profiling.clear()
+    yield
+    profiling.clear()
+
+
+def traced():
+    return profile(activities=[ProfilerActivity.CPU])
+
+
+def by_name(name):
+    return [r for r in profiling.records() if r.name == name]
+
+
+def test_nothing_is_recorded_without_a_profiler():
+    assert profiling.span("fill.unknowns") is profiling._NULL
+    assert profiling.span("fill.pass", pcg_iterations=3) is profiling._NULL
+    assert profiling.call("fill") is profiling._NULL
+    with profiling.call("fill"), profiling.span("fill.unknowns"):
+        profiling.count("hierarchy_builds")
+    fn = lambda: None  # noqa: E731
+    assert profiling.carry(fn) is fn
+    assert profiling.records() == []
+
+
+def test_parents_call_ids_and_threads():
+    with traced():
+        for _ in range(2):
+            with profiling.call("fill"):
+                with profiling.span("fill.pass", pcg_iterations=0):
+                    with profiling.span("fill.hierarchy"):
+                        profiling.count("hierarchy_builds")
+                        profiling.count("hierarchy_builds", 2)
+                    profiling.count("pcg_iterations", 5)
+        with profiling.span("fill.upload"):
+            pass
+    calls = by_name("fill.call")
+    assert len(calls) == 2 and calls[0].call_id != calls[1].call_id
+    assert all(r.parent is None for r in calls)
+    passes, hiers = by_name("fill.pass"), by_name("fill.hierarchy")
+    assert [r.call_id for r in passes] == [r.call_id for r in hiers] == [r.call_id for r in calls]
+    assert {r.parent for r in passes} == {"fill.call"}
+    assert {r.parent for r in hiers} == {"fill.pass"}
+    assert [r.counts for r in passes] == [{"pcg_iterations": 5}] * 2
+    assert [r.counts for r in hiers] == [{"hierarchy_builds": 3}] * 2
+    (outside,) = by_name("fill.upload")
+    assert outside.call_id is None and outside.parent is None
+    main = threading.current_thread().name
+    for r in profiling.records():
+        assert r.thread == main
+        assert r.start_ns <= r.end_ns
+        # only Python numbers and strings: no tensor is kept alive
+        values = [r.call_id, r.name, r.parent, r.thread, r.start_ns, r.end_ns,
+                  *r.counts.keys(), *r.counts.values()]
+        assert all(v is None or type(v) in (int, float, str) for v in values)
+    # inner spans close first
+    assert hiers[0].end_ns <= passes[0].end_ns <= calls[0].end_ns
+
+
+def test_recording_stops_with_the_profiler():
+    with traced():
+        with profiling.span("fill.upload"):
+            pass
+    with profiling.span("fill.fetch"):
+        pass
+    assert [r.name for r in profiling.records()] == ["fill.upload"]
+
+
+def test_worker_task_carries_the_callers_call_id():
+    """A task handed to ``detect``'s overlap executor runs under the span
+    open where it was submitted; a task handed over without ``carry`` runs
+    where the profiler, which is per thread, is off, and records nothing."""
+
+    def task(name):
+        with profiling.span(name):
+            return threading.current_thread().name
+
+    pool = pipeline._get_overlap_executor()
+    with traced():
+        with profiling.call("detect"):
+            worker = pool.submit(profiling.carry(lambda: task("detect.write cloud mask"))).result(
+                timeout=60)
+            pool.submit(lambda: task("detect.cloud partition")).result(timeout=60)
+    (call,) = by_name("detect.call")
+    (rec,) = by_name("detect.write cloud mask")
+    assert rec.call_id == call.call_id and rec.parent == "detect.call"
+    assert rec.thread == worker != threading.current_thread().name
+    assert worker.startswith("sat-overlap")
+    assert by_name("detect.cloud partition") == []
+
+
+def test_span_duration_matches_the_profiler():
+    """The recorder's clock and the profiler's host event of the same span
+    agree within 5 % or 50 us. The two read their clocks a few statements
+    apart, so a thread descheduled in between (a loaded host) parts them by
+    milliseconds: the closest of five spans is held to the limit."""
+    with traced() as prof:
+        for _ in range(5):
+            with profiling.span("fill.scatter_back"):
+                time.sleep(0.005)
+    ours = [(r.end_ns - r.start_ns) / 1e9 for r in by_name("fill.scatter_back")]
+    theirs = [e.duration_ns() / 1e9 for e in prof.profiler.kineto_results.events()
+              if e.name() == "fill.scatter_back"]
+    assert len(ours) == len(theirs) == 5
+    assert min(ours) > 1e-3
+    assert min(abs(a - b) - max(0.05 * b, 50e-6) for a, b in zip(ours, theirs)) <= 0, (
+        ours, theirs)
+
+
+def _multigrid_case():
+    rng = np.random.default_rng(14)
+    images = rng.integers(0, 10000, size=(2, 96, 112)).astype(np.float64)
+    invalid = np.zeros((96, 112), bool)
+    invalid[10:80, 15:95] = True
+    config = dataclasses.replace(DEFAULT_SOLVER, mg_threshold_pixels=1024)
+    return images, invalid, config
+
+
+def test_solve_matrix_spans_and_hierarchy_builds():
+    """Two calls on one mask: the first builds the multigrid hierarchy, the
+    second finds it cached; every fill span carries its call's id, and the
+    passes' iterations add up to the call's."""
+    images, invalid, config = _multigrid_case()
+    multigrid._HIERARCHY_CACHE.clear()
+    results = []
+    with traced():
+        for _ in range(2):
+            results.append(laplace.solve_matrix(images, invalid, config, device="cpu")[1])
+    multigrid._HIERARCHY_CACHE.clear()
+    calls = by_name("fill.call")
+    assert len(calls) == 2
+    assert [r.counts for r in by_name("fill.hierarchy")] == [
+        {"hierarchy_builds": 1}, {"hierarchy_builds": 0}]
+    for call, result in zip(calls, results):
+        mine = [r for r in profiling.records() if r.call_id == call.call_id]
+        names = {r.name for r in mine}
+        assert names == {"fill.call", "fill.unknowns", "fill.exactness_check", "fill.laplace_fill",
+                         "fill.scatter_back", "fill.hierarchy", "fill.upload",
+                         "fill.entry_residual", "fill.pass", "fill.fetch"}
+        passes = [r for r in mine if r.name == "fill.pass"]
+        assert {r.parent for r in passes} == {"fill.laplace_fill"}
+        assert sum(r.counts["pcg_iterations"] for r in passes) == result.iterations > 0
+
+
+def test_pit_fill_records_each_level():
+    """One ``pitfill.level`` a pyramid level, coarsest first, with the same
+    numbers ``on_level`` sees."""
+    x = torch.rand(150, 140, generator=torch.Generator().manual_seed(14)) * 0.9
+    seen = []
+    with traced():
+        with profiling.call("detect"):
+            pitfill.pit_fill(x, 0.45, on_level=lambda *a: seen.append(a))
+    levels = by_name("pitfill.level")
+    assert [r.counts["level"] for r in levels] == [lvl for lvl, *_ in seen] == [2, 1, 0]
+    for rec, (lvl, shape, rounds, cycles) in zip(levels, seen):
+        assert rec.counts["cells"] == shape[0] * shape[1]
+        assert rec.counts["cycles"] == cycles == 0  # the CPU runs no cycles
+        assert rec.counts["sweeps"] == sum(n for _, n in rounds) > 0
+        assert rec.counts["cells_swept"] == sum(c * n for c, n in rounds) > 0
+        assert rec.parent == "detect.call"
+
+
+def test_stage_timer_stages_are_spans():
+    timer = profiling.StageTimer("cpu")
+    with traced():
+        with timer.stage("cloud mask"):
+            pass
+        with timer.stage("matching/sweep 64x32 n=3", "matching/sweep", wb=64, hb=32, n=3):
+            pass
+    assert [name for name, _ in timer.stages] == ["cloud mask", "matching/sweep 64x32 n=3"]
+    assert all(isinstance(t, float) for _, t in timer.stages)
+    assert [(r.name, r.counts) for r in profiling.records()] == [
+        ("detect.cloud mask", {}), ("detect.matching/sweep", {"wb": 64, "hb": 32, "n": 3})]
+
+
+def test_stage_timer_report_keeps_overlap_out_of_the_total():
+    """Stages inside another stage and stages on worker threads are listed
+    apart; the total is the outermost stages of the timer's own thread."""
+    timer = profiling.StageTimer()
+    timer._log += [("read inputs", 1.0, False, False), ("matching/native scan", 0.5, False, True),
+                   ("cloud-shadow matching", 2.0, False, False),
+                   ("write cloud mask", 4.0, True, False)]
+    report = timer.report().splitlines()
+    assert report[:3] == ["read inputs: 1.000s (33.3%)", "cloud-shadow matching: 2.000s (66.7%)",
+                          "total: 3.000s"]
+    assert report[3:] == ["inside the stages above:", "  matching/native scan: 0.500s",
+                          "on worker threads, overlapping the total:", "  write cloud mask: 4.000s"]
+
+
+def test_stage_timer_marks_nested_and_worker_stages():
+    timer = profiling.StageTimer()
+    with timer.stage("cloud-shadow matching"):
+        with timer.stage("matching/cast transforms"):
+            pass
+    t = threading.Thread(target=_one_stage, args=(timer, "write shadow masks"))
+    t.start()
+    t.join(timeout=60)
+    assert not t.is_alive()
+    assert [(n, w, nested) for n, _, w, nested in timer._log] == [
+        ("matching/cast transforms", False, True), ("cloud-shadow matching", False, False),
+        ("write shadow masks", True, False)]
+    outer = dict(timer.stages)["cloud-shadow matching"]
+    assert timer.report().splitlines()[1] == f"total: {outer:.3f}s"
+
+
+def _one_stage(timer, name):
+    with timer.stage(name):
+        pass
