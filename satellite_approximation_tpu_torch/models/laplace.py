@@ -26,6 +26,7 @@ from ..utils.log import create_logger
 from ..utils import profiling
 from ..utils.perf import Stopwatch
 from . import multigrid
+from ._surface import cast_exact_f32, scatter_masked
 from .cg import CGResult, solve_banded_chunks, solve_masked_poisson
 
 _logger = create_logger("approx.laplace")
@@ -109,10 +110,7 @@ def _solve_matrix(images, invalid_mask, config: SolverConfig, device):
     # u8/u16-derived raster), upload f32 and fetch back only the n solved
     # values
     with profiling.span("fill.exactness_check"):
-        img32 = images.astype(np.float32)
-        exact = config.device_assembly == "force" or (
-            config.device_assembly == "auto" and np.array_equal(img32.astype(np.float64), images)
-        )
+        img32, exact = cast_exact_f32(images, config.device_assembly)
     if exact:
         # looked up at call time: a caller may wrap models.fill.laplace_fill
         from .fill import laplace_fill
@@ -129,9 +127,7 @@ def _solve_matrix(images, invalid_mask, config: SolverConfig, device):
                 device=dev,
             )
         with profiling.span("fill.scatter_back"):
-            filled = images.copy()
-            ys, xs = np.nonzero(umask)
-            filled[:, ys, xs] = result.x  # (C, n)
+            filled = scatter_masked(images, umask, result.x)
         out = filled[0] if squeeze else filled
         return out, result
 

@@ -25,6 +25,7 @@ from ..device import resolve_device
 from ..utils.log import create_logger
 from ..utils.perf import PerfInfo
 from . import multigrid
+from ._surface import cast_exact_f32, scatter_masked
 from .cg import neighbor_degree, solve_banded_chunks, solve_masked_poisson
 
 _logger = create_logger("approx.poisson")
@@ -111,13 +112,10 @@ def _solve(
 
     # device path (see laplace.solve_matrix): f32 uploads, guidance RHS
     # assembled on the device, only the n solved values come back
-    inp32 = np.asarray(inputs, np.float32)
-    rep32 = np.asarray(replacement, np.float32)
-    if config.device_assembly == "force" or (
-        config.device_assembly == "auto"
-        and np.array_equal(inp32.astype(np.float64), np.asarray(inputs, np.float64))
-        and np.array_equal(rep32.astype(np.float64), np.asarray(replacement, np.float64))
-    ):
+    inp32, exact = cast_exact_f32(inputs, config.device_assembly)
+    if exact:
+        rep32, exact = cast_exact_f32(replacement, config.device_assembly)
+    if exact:
         from .fill import laplace_fill
 
         result = laplace_fill(
@@ -131,9 +129,7 @@ def _solve(
             replacement=rep32,
             device=device,
         )
-        out = np.asarray(inputs, dtype=np.float64).copy()
-        ys, xs = np.nonzero(umask)
-        out[..., ys, xs] = result.x  # (C, n)
+        out = scatter_masked(inputs, umask, result.x)
     else:
         b = _poisson_rhs(replacement, inputs, umask)
         x0 = np.asarray(replacement, dtype=np.float64) * umask

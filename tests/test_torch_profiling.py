@@ -15,7 +15,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from satellite_approximation_tpu_torch.config import DEFAULT_SOLVER
-from satellite_approximation_tpu_torch.models import laplace, multigrid
+from satellite_approximation_tpu_torch.models import _surface, laplace, multigrid
 from satellite_approximation_tpu_torch.models.detection import pipeline
 from satellite_approximation_tpu_torch.ops import pitfill
 from satellite_approximation_tpu_torch.utils import profiling
@@ -140,10 +140,13 @@ def _multigrid_case():
     return images, invalid, config
 
 
-def test_solve_matrix_spans_and_hierarchy_builds():
+def test_solve_matrix_spans_and_hierarchy_builds(monkeypatch):
     """Two calls on one mask: the first builds the multigrid hierarchy, the
-    second finds it cached; every fill span carries its call's id, and the
-    passes' iterations add up to the call's."""
+    second finds it cached; every fill span carries its call's id and is
+    recorded on the caller's thread, though the host surface's passes run
+    on a pool (blocks of 4 KiB here), and the passes' iterations add up to
+    the call's."""
+    monkeypatch.setattr(_surface, "BLOCK_BYTES", 4096)
     images, invalid, config = _multigrid_case()
     multigrid._HIERARCHY_CACHE.clear()
     results = []
@@ -161,6 +164,9 @@ def test_solve_matrix_spans_and_hierarchy_builds():
         assert names == {"fill.call", "fill.unknowns", "fill.exactness_check", "fill.laplace_fill",
                          "fill.scatter_back", "fill.hierarchy", "fill.upload",
                          "fill.entry_residual", "fill.pass", "fill.fetch"}
+        assert {r.thread for r in mine} == {threading.current_thread().name}
+        [check] = [r for r in mine if r.name == "fill.exactness_check"]
+        assert check.counts["surface_threads"] == _surface._get_pool()[1]
         passes = [r for r in mine if r.name == "fill.pass"]
         assert {r.parent for r in passes} == {"fill.laplace_fill"}
         assert sum(r.counts["pcg_iterations"] for r in passes) == result.iterations > 0
