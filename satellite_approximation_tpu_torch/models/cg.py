@@ -29,14 +29,34 @@ _TINY32 = torch.finfo(torch.float32).tiny
 # element count.
 _STATE_BYTES_PER_ELEMENT = 128
 
+# A band of this many pixels keeps the card busy alone: more bands in its
+# chunk gain no rate (10980² bands solve as fast in one-band chunks as in
+# two-band ones on an H100) and each holds its own solver state.
+BAND_BATCH_PIXELS = 1 << 26
+
+
+def free_device_bytes(device: torch.device) -> int:
+    """Device memory a solve may take: the free bytes CUDA reports plus the
+    caching allocator's reserved but unused blocks, so that the chunks do
+    not depend on what earlier calls left reserved."""
+    free, _ = torch.cuda.mem_get_info(device)
+    return free + torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+
 
 def chunk_elements(device: torch.device) -> int:
-    """Band-pixels one chunk may hold: 80% of the free CUDA memory over the
-    state bytes per pixel; unbounded on the CPU (one chunk)."""
+    """Band-pixels one chunk may hold: 80% of :func:`free_device_bytes` over
+    the state bytes per pixel; unbounded on the CPU (one chunk)."""
     if device.type != "cuda":
         return sys.maxsize
-    free, _ = torch.cuda.mem_get_info(device)
-    return max(int(0.8 * free) // _STATE_BYTES_PER_ELEMENT, 1)
+    return max(int(0.8 * free_device_bytes(device)) // _STATE_BYTES_PER_ELEMENT, 1)
+
+
+def bands_per_chunk(h: int, w: int, limit: int) -> int:
+    """Bands of (h, w) rasters one chunk holds within ``limit`` band-pixels,
+    at least one; one alone once a band has :data:`BAND_BATCH_PIXELS`."""
+    if h * w >= BAND_BATCH_PIXELS:
+        return 1
+    return max(int(limit) // (h * w), 1)
 
 
 def neighbor_degree(shape: tuple[int, int]) -> np.ndarray:
@@ -128,15 +148,15 @@ def solve_banded_chunks(solve_fn, b, device=None, **kwargs) -> CGResult:
     solve them in turn; ``solve_fn(b_chunk, device=..., **kwargs)``."""
     dev = resolve_device(device)
     c, h, w = b.shape
-    bands_per_chunk = max(chunk_elements(dev) // (h * w), 1)
-    if bands_per_chunk >= c:
+    step = bands_per_chunk(h, w, chunk_elements(dev))
+    if step >= c:
         return solve_fn(b, device=dev, **kwargs)
     xs = []
     iters = 0
     err = 0.0
     x0 = kwargs.pop("x0", None)
-    for s in range(0, c, bands_per_chunk):
-        e = min(s + bands_per_chunk, c)
+    for s in range(0, c, step):
+        e = min(s + step, c)
         sub_kwargs = dict(kwargs)
         if x0 is not None:
             sub_kwargs["x0"] = x0[s:e]

@@ -33,7 +33,14 @@ from ..ops.stencil_kernels import (
 )
 from ..utils import profiling
 from . import multigrid
-from .cg import CGResult, _cg_core, chunk_elements, neighbor_degree_tensor, shift_sum
+from .cg import (
+    CGResult,
+    _cg_core,
+    bands_per_chunk,
+    chunk_elements,
+    neighbor_degree_tensor,
+    shift_sum,
+)
 
 _TINY64 = np.finfo(np.float64).tiny
 # integer rasters (the Sentinel-2 case) upload in their own dtype — half the
@@ -234,8 +241,8 @@ def laplace_fill(
 
     ``image`` is (C, H, W) or (H, W), numpy or tensor, any real dtype;
     ``umask`` is (H, W) bool. Bands solve in chunks sized from the free
-    device memory (or ``max_chunk_elements`` band-pixels); the hierarchy is
-    shared across chunks.
+    device memory (or ``max_chunk_elements`` band-pixels) by
+    :func:`cg.bands_per_chunk`; the hierarchy is shared across chunks.
 
     ``band_sink``: optional ``fn(start, end, filled_chunk)`` that takes each
     filled chunk as it completes; chunks are then not kept and ``x`` is None.
@@ -269,18 +276,15 @@ def laplace_fill(
         umask_t = as_tensor(umask, dev, torch.bool)
 
     c, h, w = img.shape
-    limit = max_chunk_elements or chunk_elements(dev)
-    bands_per_chunk = max(int(limit // (h * w)), 1)
+    step = bands_per_chunk(h, w, max_chunk_elements or chunk_elements(dev))
     deg = neighbor_degree_tensor(h, w, dev)
     hier = None
     if use_multigrid:
         with profiling.span("fill.hierarchy", hierarchy_builds=0):
             hier = multigrid._device_hierarchy(umask_t, deg, dev)
 
-    if masked_values_output:
-        iy, ix = torch.nonzero(umask_t, as_tuple=True)
-        masked_vals = []
-    single_chunk = bands_per_chunk >= c
+    masked_vals = []
+    single_chunk = step >= c
     filled = (
         None
         if (single_chunk or band_sink is not None or masked_values_output)
@@ -288,37 +292,43 @@ def laplace_fill(
     )
     total_iters = 0
     err = 0.0
-    for s in range(0, c, bands_per_chunk):
-        e = min(s + bands_per_chunk, c)
-        with profiling.span("fill.upload"):
-            chunk = _upload(img, s, e, dev)
-            rchunk = chunk if rep is None else _upload(rep, s, e, dev)
-        x_hi, x_lo, iters, rnorm, bnorm = _fused_refine_solve(
-            chunk, rchunk, umask_t, deg, hier, tolerance,
-            max_iterations=max_iterations,
-            refinement_steps=max(refinement_steps, 1),
-            precond_dtype=multigrid.PRECOND_DTYPE,
-            use_multigrid=use_multigrid,
-            mode=mode,
-        )
-        del rchunk
-        total_iters += iters
-        err = max(err, float(np.max(rnorm / np.maximum(bnorm, 1e-300))))
-        if masked_values_output:
-            with profiling.span("fill.fetch"):
-                masked_vals.append(_gather_masked(x_hi, x_lo, iy, ix).cpu().numpy())
-            continue
-        out = _composite(chunk, x_hi, x_lo, umask_t)
-        del chunk, x_hi, x_lo
-        if band_sink is not None:
-            band_sink(s, e, out)
-        elif single_chunk:
-            filled = out
-        else:
-            filled[s:e] = out
-        del out
+    for s in range(0, c, step):
+        e = min(s + step, c)
+        with profiling.span("fill.chunk", bands=e - s):
+            with profiling.span("fill.upload"):
+                chunk = _upload(img, s, e, dev)
+                rchunk = chunk if rep is None else _upload(rep, s, e, dev)
+            x_hi, x_lo, iters, rnorm, bnorm = _fused_refine_solve(
+                chunk, rchunk, umask_t, deg, hier, tolerance,
+                max_iterations=max_iterations,
+                refinement_steps=max(refinement_steps, 1),
+                precond_dtype=multigrid.PRECOND_DTYPE,
+                use_multigrid=use_multigrid,
+                mode=mode,
+            )
+            del rchunk
+            total_iters += iters
+            err = max(err, float(np.max(rnorm / np.maximum(bnorm, 1e-300))))
+            if masked_values_output:
+                # the indices live past the solve only, so that its peak
+                # does not grow with the unknowns
+                iy, ix = torch.nonzero(umask_t, as_tuple=True)
+                with profiling.span("fill.fetch"):
+                    masked_vals.append(_gather_masked(x_hi, x_lo, iy, ix).cpu().numpy())
+                del chunk, x_hi, x_lo, iy, ix
+                continue
+            out = _composite(chunk, x_hi, x_lo, umask_t)
+            del chunk, x_hi, x_lo
+            if band_sink is not None:
+                band_sink(s, e, out)
+            elif single_chunk:
+                filled = out
+            else:
+                filled[s:e] = out
+            del out
     if masked_values_output:
-        vals = np.concatenate(masked_vals, axis=0)
+        with profiling.span("fill.join"):
+            vals = np.concatenate(masked_vals, axis=0)
         return CGResult(vals[0] if squeeze else vals, total_iters, err)
     if squeeze and filled is not None:
         filled = filled[0]

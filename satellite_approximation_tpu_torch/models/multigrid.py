@@ -360,7 +360,9 @@ def _device_hierarchy(umask, deg: torch.Tensor, device: torch.device) -> Hierarc
     m_c, d_c = levels[-1]
     coarse_inv = _dense_coarse_inverse(m_c, d_c) if m_c.numel() <= _DENSE_COARSE_MAX else None
     hier = Hierarchy(levels, coarse_inv)
-    _HIERARCHY_CACHE[key] = hier
+    # the entry holds the mask's levels, not the caller's level-0 deg (an f32
+    # raster each call builds anew: 482 MB at 10980²)
+    _HIERARCHY_CACHE[key] = Hierarchy(((umask_t, None),) + levels[1:], coarse_inv)
     while len(_HIERARCHY_CACHE) > _HIERARCHY_CACHE_CAP:
         _HIERARCHY_CACHE.popitem(last=False)
     return hier

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ..device import as_tensor
-from ..models.cg import neighbor_degree
+from ..models.cg import free_device_bytes, neighbor_degree
 from .mesh import ShardMesh
 from .mg import sharded_mg_solve, sharded_mg_solve_2d
 
@@ -59,9 +59,7 @@ def chunk_bands(mesh: ShardMesh, c: int, h: int, w: int,
         for d in mesh.distinct_devices():
             if d.type != "cuda":
                 continue
-            # the caching allocator's reserved but unused blocks count as free
-            free = 0.8 * (torch.cuda.mem_get_info(d)[0] + torch.cuda.memory_reserved(d)
-                          - torch.cuda.memory_allocated(d))
+            free = 0.8 * free_device_bytes(d)
             cost = _STATE_BYTES_PER_ELEMENT * devs.count(d) / mesh.size
             if d == mesh.first_device:
                 free -= 8 * c * h * w

@@ -163,12 +163,15 @@ def test_solve_matrix_spans_and_hierarchy_builds(monkeypatch):
         names = {r.name for r in mine}
         assert names == {"fill.call", "fill.unknowns", "fill.exactness_check", "fill.laplace_fill",
                          "fill.scatter_back", "fill.hierarchy", "fill.upload",
-                         "fill.entry_residual", "fill.pass", "fill.fetch"}
+                         "fill.entry_residual", "fill.pass", "fill.fetch", "fill.chunk",
+                         "fill.join"}
         assert {r.thread for r in mine} == {threading.current_thread().name}
         [check] = [r for r in mine if r.name == "fill.exactness_check"]
         assert check.counts["surface_threads"] == _surface._get_pool()[1]
+        [chunk] = [r for r in mine if r.name == "fill.chunk"]
+        assert chunk.parent == "fill.laplace_fill" and chunk.counts == {"bands": images.shape[0]}
         passes = [r for r in mine if r.name == "fill.pass"]
-        assert {r.parent for r in passes} == {"fill.laplace_fill"}
+        assert {r.parent for r in passes} == {"fill.chunk"}
         assert sum(r.counts["pcg_iterations"] for r in passes) == result.iterations > 0
 
 
