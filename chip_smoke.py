@@ -52,8 +52,9 @@ Phases (each raises on failure, so the run exits non-zero):
    former beside its bound), and ``benchmarks/x_stride_probe.py``'s five
    idioms with its own checks;
 8. detection: ``detect`` from pre-decoded rasters of a synthetic scene to the
-   four mask files and a ``Status``; its one hand-written kernel is kernel
-   9, the pit fill's directional pass (``csrc/pitfill.cu``). 8a at 1024^2
+   four mask files and a ``Status``; its hand-written kernels are kernel 9,
+   the pit fill's directional pass (``csrc/pitfill.cu``), and kernel 10,
+   the cloud partition's labelling (``csrc/components.cu``). 8a at 1024^2
    in both routes (host: native scan and numpy refinement; all-device:
    torch sweep and refinement): cloud and potential-shadow masks equal,
    object and final masks at IoU >= 0.995, the scene not trivial; the
@@ -69,14 +70,20 @@ Phases (each raises on failure, so the run exits non-zero):
    one-cycle budget bit-equal to the plain version, and kernel 9's time a
    pass in each direction beside its byte bound, a pass in a launch a batch
    of rows, a one-cycle budget, and one strip of the same height (the row
-   chain alone). 8b at 4096^2 (>= 16 Mpix, so
-   backend "auto" takes the device stages), cold and warm, each with kernel
-   9's launches counted from 0 (it must launch), the stage table, each
-   stage's route and the peak device memory; then the stage's pit fill of
-   that scene level by level (cycles, rounds, sweeps; every level of at
-   least ``_DIRECTIONAL_MIN_SIZE`` cells must run cycles), bit-equal to the
-   native flood of the same NIR and border. ``--tile-detect`` runs phases
-   1, 2 and 8 alone with 8b at 10980^2.
+   chain alone); on the benchmark scene's raw cloud mask at 5490^2 and
+   10980^2, kernel 10 bit-equal to its plain version and the partition on
+   the card equal to the native flood, kernel 10's time beside its byte
+   bound and the plain version's, and the partition's time on the card
+   beside the host flood's (the small and ragged shapes are the card
+   tests'). 8b at
+   4096^2 (>= 16 Mpix, so backend "auto" takes the device stages), cold
+   and warm, each with kernels 9's and 10's launches counted from 0 (both
+   must launch), the stage table, each stage's route and the peak device
+   memory; then the stage's pit fill of that scene level by level (cycles,
+   rounds, sweeps; every level of at least ``_DIRECTIONAL_MIN_SIZE`` cells
+   must run cycles), bit-equal to the native flood of the same NIR and
+   border. ``--tile-detect`` runs phases 1, 2 and 8 alone with 8b at
+   10980^2.
 9. entry points, in process, on the card by default, each with its wall
    time split into reading, solving or detecting, and writing, and its peak
    device memory: 9a ``sat-torch-laplace`` on a 2048^2 RGB PNG and a marker
@@ -174,6 +181,9 @@ KERNELS = {
     "stride2": (f"{CSRC}/stride.cu", "benchmarks/x_stride_probe.py:29"),
     # kernel 9 replaces no TPU kernel: the JAX package's pass is a lax.scan
     "directional_pass": (f"{CSRC}/pitfill.cu", "satellite_approximation_tpu/ops/pitfill.py:100"),
+    # nor kernel 10: the JAX package labels by lax propagation
+    "label_components": (f"{CSRC}/components.cu",
+                         "satellite_approximation_tpu/ops/components.py:28"),
 }
 STRIDE2_TIMED = "both"  # the mode whose times stand in the kernels line
 # the kernels --against times, each on the bench mask and the 60 % mask
@@ -1339,6 +1349,95 @@ def check_directional(torch, dev, card):
     return entry
 
 
+COMPONENT_TIMED = (5490, 10980)  # the 20 m and the 10 m tile
+COMPONENT_LINE = 5490  # the shape whose time stands in the kernels line
+MIN_CLOUD = 3  # the partition's min_area in the checks (detect's default is larger)
+
+
+def scene_cloud_mask(torch, dev, n, seed=2147483659):
+    """The raw cloud mask that ``detect`` partitions, on the card, of the
+    benchmark's n^2 scene at 25 % cover (``portbench/traffic/scenes.py``)."""
+    from portbench.traffic import scenes
+    from satellite_approximation_tpu_torch.config import DEFAULT_DETECTION as cfg
+    from satellite_approximation_tpu_torch.device import divide
+    from satellite_approximation_tpu_torch.models.detection import cloud_mask as cm
+
+    scene = scenes.detect_scene(n, n, 0.25, scenes.generator(seed, dev), dev)
+
+    def norm(name, top):
+        return divide(torch.as_tensor(scene[name], device=dev).to(torch.float32), float(top))
+
+    gen = cm.generate_cloud_mask_ignore_low_probability(
+        norm("CLP", 255), norm("CLD", 100), torch.as_tensor(scene["SCL"], device=dev),
+        cfg.cloud_mask, device_output=True)
+    return gen.cloud_mask_no_processing.contiguous()
+
+
+def _host_median_s(torch, fn, runs=5):
+    """Median host seconds of ``fn`` to a synchronise, after one warm call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def check_components(torch, dev, card):
+    """Kernel 10 (``csrc/components.cu``) on the benchmark scene's raw cloud
+    mask at 5490^2 and 10980^2: bit for bit against its plain version, the
+    partition on the card (kernel 10 and ``partition_labels``) equal to the
+    native flood, id map and regions; kernel 10's time beside its byte bound
+    and the plain version's, and the partition's time on the card beside the
+    host route's (fetch, flood, regions). The small and ragged shapes are the
+    card tests' (``tests/test_torch_gpu.py``). Returns kernel 10's entry of
+    the kernels line."""
+    from satellite_approximation_tpu_torch import native
+    from satellite_approximation_tpu_torch.ops import components as CC
+    from satellite_approximation_tpu_torch.utils.roofline import bound_ms, components_work
+
+    entry = {"max_abs_err": 0.0, "library_ms": None}
+    for n in COMPONENT_TIMED:
+        mask = scene_cloud_mask(torch, dev, n)
+        plain_labels = CC.connected_components(mask)
+        entry["max_abs_err"] = max(entry["max_abs_err"],
+                                   _bitwise(torch, CC.label_components(mask), plain_labels))
+        del plain_labels
+        id_map, regions = CC.partition_labels(CC.label_components(mask), MIN_CLOUD)
+        want_map, count = native.flood_partition(mask.cpu().numpy(), MIN_CLOUD)
+        if not (np.array_equal(id_map.cpu().numpy(), want_map)
+                and regions == CC._regions_from_labels(want_map, count)):
+            raise AssertionError(f"8a kernel 10 {n}x{n}: the partition on the card differs from "
+                                 "the native flood")
+        kept = len(regions)
+        del id_map, want_map
+        ms = _median_ms(torch, lambda: CC.label_components(mask))
+        plain = _median_ms(torch, lambda: CC.connected_components(mask), runs=3)
+        bound, by = bound_ms(*components_work(n, n))
+        card_s = _host_median_s(torch, lambda: CC.partition_labels(CC.label_components(mask),
+                                                                    MIN_CLOUD))
+
+        def host_route():
+            id_map, count = native.flood_partition(mask.cpu().numpy(), MIN_CLOUD)
+            return CC._regions_from_labels(id_map, count)
+
+        host_s = _host_median_s(torch, host_route, runs=3)
+        log(f"[8 detect] 8a kernel 10 {n}x{n} scene mask ({float(mask.float().mean()):.1%} set, "
+            f"{kept} regions of >= {MIN_CLOUD} pixels): bit-equal to the plain version, the "
+            f"partition equal to the native flood; kernel {ms:.4f} ms, bound {bound:.4f} ms by "
+            f"{by} ({bound / ms:.1%}), plain {plain:.3f} ms; the partition on the card "
+            f"{1e3 * card_s:.3f} ms, the host route (fetch, flood, regions) {1e3 * host_s:.1f} ms "
+            f"[{card}]")
+        if n == COMPONENT_LINE:
+            entry.update(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by)
+        del mask
+        torch.cuda.empty_cache()
+    return entry
+
+
 def detect_pit_fill(torch, dev, scene, card):
     """The pit fill of ``detect``'s potential-shadow stage on ``scene``: the
     normalized NIR and the border the stage computes, through ``pit_fill``
@@ -1392,8 +1491,10 @@ def phase_detect(torch, dev, card, big=4096):
     at ``big``^2 (>= 16 Mpix: the device stages under backend "auto"), cold
     and warm, each with kernel 9's launches counted from 0, then the stage's
     pit fill level by level against the flood (:func:`detect_pit_fill`).
-    Returns (kernel 9's entry of the kernels line, its launches in the warm
-    run)."""
+    Kernel 10 against its plain version and the partition on the card against
+    the flood come after kernel 9 (:func:`check_components`). Returns, for
+    kernels 9 and 10 by name, (the entry of the kernels line, the launches in
+    the warm run)."""
     from satellite_approximation_tpu_torch import native
     from satellite_approximation_tpu_torch.config import BIG_SCENE_PIXELS
     from satellite_approximation_tpu_torch.ops import geometry
@@ -1459,6 +1560,7 @@ def phase_detect(torch, dev, card, big=4096):
         if not rel <= 1e-6:
             raise AssertionError(f"8a: LS point differs by {rel}")
     entry = check_directional(torch, dev, card)
+    entry10 = check_components(torch, dev, card)
 
     # ---- 8b: full width, the device stages under backend "auto"
     if big * big < BIG_SCENE_PIXELS:
@@ -1470,9 +1572,11 @@ def phase_detect(torch, dev, card, big=4096):
         status, masks, timer, dt, peak = run_detect(
             torch, dev, scene, big, ("auto", "auto"), f"8b {label}", card)
         launches = K.launch_counts["directional_pass"]
-        log(f"[8 detect] 8b {label}: {launches} launches of kernel 9 (directional_pass)")
-        if not launches:
-            raise AssertionError(f"8b {label}: kernel 9 never launched")
+        launches10 = K.launch_counts["label_components"]
+        log(f"[8 detect] 8b {label}: {launches} launches of kernel 9 (directional_pass), "
+            f"{launches10} of kernel 10 (label_components)")
+        if not (launches and launches10):
+            raise AssertionError(f"8b {label}: kernel 9 or kernel 10 never launched")
         log_stages(timer, f"8b {label}")
         on_host = [stage for stage, route in timer.routes.items()
                    if not route.startswith("device") or "host" in route]
@@ -1487,7 +1591,7 @@ def phase_detect(torch, dev, card, big=4096):
     log(f"[8 detect] 8b detect {big}x{big}: cold {out['cold'][2]:.3f} s, warm "
         f"{out['warm'][2]:.3f} s, peak {out['warm'][3]:.3f} GiB [{card}]")
     detect_pit_fill(torch, dev, scene, card)
-    return entry, launches
+    return {"directional_pass": (entry, launches), "label_components": (entry10, launches10)}
 
 
 # ------------------------------------------------------------------ phase 9: entry points
@@ -1867,7 +1971,7 @@ def phase_entry_points(torch, K, dev, card, tile=False):
     launches of 9a-9c, each read just after its run."""
     import tempfile
 
-    counts = dict.fromkeys(KERNELS, 0)
+    counts = dict.fromkeys(K.launch_counts, 0)
     with tempfile.TemporaryDirectory() as tmp:
         work = Path(tmp)
         for name in ("9a", "9b", "9c", "9d"):
@@ -2439,7 +2543,8 @@ def main() -> int:
     counts.update(phase_general_iterate(torch, K, dev, card, system, tile))
     del tile
     counts.update(phase_benchmark_paths(torch, K, dev, card))
-    results["directional_pass"], counts["directional_pass"] = phase_detect(torch, dev, card)
+    for name, (entry, n) in phase_detect(torch, dev, card).items():
+        results[name], counts[name] = entry, n
     for name, n in phase_entry_points(torch, K, dev, card).items():
         counts[name] = counts.get(name, 0) + n
     for name, n in phase_multi_device(torch, K, dev, card).items():

@@ -3,8 +3,8 @@
 
 Rebuild of lib/cloud_shadow_detection/source/CloudMask.cpp. The OpenCL blur,
 OpenCV morphology (ellipse dilate r=15, close r=5, 11x11 Gaussian) and CPU
-flood fill become torch ops on the rasters' device + the host flood (or the
-log-depth connected components pass of ops/components.py).
+flood fill become torch ops on the rasters' device + the host flood, or the
+labelling of ops/components.py where the mask lies on a CUDA device.
 """
 
 from __future__ import annotations
@@ -18,9 +18,10 @@ from ...config import CloudMaskConfig
 from ...device import as_tensor, resolve_device
 from ...ops import geometry
 from ...ops.blur import gaussian_blur
-from ...ops.components import Region, partition_regions
+from ...ops.components import Region, label_components, partition_labels, partition_regions
 from ...ops.masks import SCL, fetch_mask, scl_mask
 from ...ops.morphology import close, cv_gaussian_blur, dilate
+from ...utils import profiling
 
 
 @dataclasses.dataclass
@@ -122,23 +123,30 @@ class CloudObject:
 
 def partition_cloud_mask(
     cloud_mask, diagonal_length: float, min_cloud_area: int, device=None
-) -> tuple[np.ndarray, list[CloudObject]]:
+) -> tuple[np.ndarray | torch.Tensor, list[CloudObject]]:
     """Partition the mask into cloud objects with world-space quads
     (CloudMask.cpp:63-108). Returns (id_map, clouds); id_map holds the
     compact cloud id per pixel (-1 elsewhere), ids in the reference's
-    bottom-left column-major discovery order.
+    bottom-left column-major discovery order, and lies where the mask lies.
 
-    Without the native library the label propagation of
-    ``ops/components.py`` runs on ``device`` (``None``: where a tensor mask
-    lies, the CUDA device for a host mask)."""
-    if device is None and isinstance(cloud_mask, torch.Tensor):
-        device = cloud_mask.device
-    # the flood itself is host-side (pointer-chasing BFS); a tensor mask
-    # comes to the host for it
-    mask = fetch_mask(cloud_mask)
-    h, w = mask.shape
-    id_map, regions = partition_regions(
-        mask, min_area=min_cloud_area, connectivity=8, device=device)
+    A tensor mask is partitioned where it lies (``ops.components``:
+    kernel 10 on a CUDA device, the plain label propagation on the CPU),
+    its id map an int32 tensor there. A host mask takes the native flood;
+    without the native library the label propagation runs on ``device``
+    (``None``: the CUDA device) and the id map comes to the host.
+
+    Under an open span it counts ``regions`` (the clouds kept) and
+    ``on_device`` (1 where kernel 10 labelled the mask)."""
+    h, w = cloud_mask.shape
+    if isinstance(cloud_mask, torch.Tensor):
+        id_map, regions = partition_labels(
+            label_components(cloud_mask.to(torch.bool).contiguous()), min_cloud_area)
+    else:
+        id_map, regions = partition_regions(
+            np.asarray(cloud_mask, bool), min_area=min_cloud_area, connectivity=8, device=device)
+    profiling.count("regions", len(regions))
+    profiling.count("on_device", int(isinstance(cloud_mask, torch.Tensor)
+                                     and cloud_mask.device.type == "cuda"))
 
     clouds = []
     for r in regions:

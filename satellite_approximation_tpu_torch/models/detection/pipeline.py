@@ -25,7 +25,7 @@ from ...ops.masks import fetch_mask
 from ...utils.dates import Date
 from ...utils.db import DataBase
 from ...utils.filesystem import multispectral_folders
-from ...utils.geotiff import GeoTIFF, write_geotiff
+from ...utils.geotiff import GeoTIFF, write_geotiff_deflated
 from ...utils.log import create_logger
 from ...utils.perf import Stopwatch
 from ...utils import profiling
@@ -44,9 +44,9 @@ _overlap_lock = threading.Lock()
 
 
 def _get_overlap_executor():
-    """Shared 3-worker pool for overlapping independent big-scene stages
-    (cloud partition rides the host CPU, mask TIFF writes ride the disk —
-    disjoint resources, no data deps)."""
+    """Shared 3-worker pool for the big-scene mask writes (D2H fetch + TIFF
+    encode ride the host and the disk while the device stages run; no data
+    deps)."""
     global _overlap_executor
     with _overlap_lock:
         if _overlap_executor is None:
@@ -177,7 +177,9 @@ def _read_angles(
 
 
 def _write_mask(mask, out_path: Path, template: Path) -> None:
-    write_geotiff(fetch_mask(mask).astype(np.uint8), out_path, template_path=template)
+    # deflated by zlib, which releases the GIL: a write on a worker does not
+    # stall the stages on the calling thread
+    write_geotiff_deflated(fetch_mask(mask).astype(np.uint8), out_path, template_path=template)
 
 
 def detect(
@@ -274,6 +276,9 @@ def _detect(params, diagonal_distance, skip_shadow_detection, use_cache, config,
     sharded = None if det_mesh is None else f"device, sharded over {det_mesh.size} shards"
     timer.routes.update({
         "cloud mask": on_dev,
+        # on the device route the raw cloud mask is a tensor on the device
+        "cloud partition": (on_dev if device_stages or not native.available()
+                            else "host, native flood"),
         "shadow stage": "host, native priority flood" if host_shadow else on_dev,
         "sun/view geometry": on_dev if device_stages else "host, chunked numpy",
         "beta map": sharded or (on_dev if device_stages else "host, numpy/scipy"),
@@ -281,9 +286,8 @@ def _detect(params, diagonal_distance, skip_shadow_detection, use_cache, config,
 
     _logger.debug(" --- Cloud Detection...")
     all_device = device_stages
-    # big scenes on the device route: the cloud partition (host flood) and
-    # the mask writes (D2H fetch + TIFF encode) run on workers and hide
-    # behind the device stages
+    # big scenes on the device route: the mask writes (D2H fetch + TIFF
+    # encode) run on workers and hide behind the device stages
     overlap = all_device and big_scene
 
     with timer.stage("cloud mask"):
@@ -322,24 +326,6 @@ def _detect(params, diagonal_distance, skip_shadow_detection, use_cache, config,
                     fut.result()
                 return status
 
-        _logger.debug(" --- Cloud Partitioning...")
-
-        def _partition_task():
-            with timer.stage("cloud partition"):
-                return cm.partition_cloud_mask(
-                    generated.cloud_mask_no_processing,
-                    diagonal_distance,
-                    config.min_cloud_size_for_ray_casting,
-                    device=dev,
-                )
-
-        if overlap:
-            # host-CPU flood runs on a worker while the device computes the
-            # shadow mask; joined right after (matching needs both)
-            partition_fut = _get_overlap_executor().submit(profiling.carry(_partition_task))
-        else:
-            cloud_map, clouds = _partition_task()
-
         _logger.debug(" --- Potential Shadow Mask Generation...")
         with timer.stage("potential shadow mask"):
             psm = sm.generate_potential_shadow_mask(
@@ -354,10 +340,6 @@ def _detect(params, diagonal_distance, skip_shadow_detection, use_cache, config,
         # potential-shadow mask is final as soon as the stage ends — its write
         # hides behind the geometry/matching/refinement stages
         _submit_write(psm.mask, params.shadow_potential_path(), "write shadow masks")
-
-        if overlap:
-            with timer.stage("cloud partition (wait)"):
-                cloud_map, clouds = partition_fut.result()
 
         angle_dtype = np.float32  # the LS reduction uses f32 directions
         with timer.stage("read angles"):
@@ -387,6 +369,18 @@ def _detect(params, diagonal_distance, skip_shadow_detection, use_cache, config,
             )
             del sun_zenith, sun_azimuth, view_zenith, view_azimuth
 
+        _logger.debug(" --- Cloud Partitioning...")
+        with timer.stage("cloud partition"):
+            # the device route's mask is partitioned where it lies (kernel 10
+            # on the card) and its id map stays there for the matching's
+            # sweep; a host mask takes the native flood
+            cloud_map, clouds = cm.partition_cloud_mask(
+                generated.cloud_mask_no_processing,
+                diagonal_distance,
+                config.min_cloud_size_for_ray_casting,
+                device=dev,
+            )
+
         _logger.debug(" --- Object-based Shadow Mask Generation...")
         with timer.stage("cloud-shadow matching"):
             # with a mesh the similarity sweep splits its heights over the
@@ -412,6 +406,7 @@ def _detect(params, diagonal_distance, skip_shadow_detection, use_cache, config,
             )
             if det_mesh is not None:
                 timer.routes["matching"] += f", sharded over {det_mesh.size} shards"
+        del cloud_map  # a device id map is not held through the refinement
 
         # object-based shadow mask is final after matching — write it while
         # the refinement stages compute

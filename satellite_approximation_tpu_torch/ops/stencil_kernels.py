@@ -19,9 +19,11 @@ wrapper                TPU kernel it replaces                           CUDA sou
 ``stride2``            ``benchmarks/x_stride_probe.py::probe``           stride.cu
 =====================  ==============================================  =============
 
-Kernel 9, the pit fill's directional pass (``csrc/pitfill.cu``), replaces no
-TPU kernel; its wrappers are in ``ops/pitfill_kernels.py`` and build into the
-same library.
+Kernel 9, the pit fill's directional pass (``csrc/pitfill.cu``), and kernel
+10, the connected-component labelling with its two passes over the labels
+(``csrc/components.cu``), replace no TPU kernel; their wrappers are in
+``ops/pitfill_kernels.py`` and ``ops/components.py`` and build into the same
+library.
 
 Shared contract of the package's kernels (as the TPU kernels'): one (H, W)
 ``invm`` operand, 1/deg on unknowns and 0 elsewhere (:func:`invm_for_kernel`),
@@ -58,7 +60,8 @@ import torch.nn.functional as F
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-_SOURCES = ("jacobi.cu", "jacobi_v2.cu", "residual.cu", "stride.cu", "pitfill.cu")
+_SOURCES = ("jacobi.cu", "jacobi_v2.cu", "residual.cu", "stride.cu", "pitfill.cu",
+            "components.cu")
 _HEADERS = ("stencil.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -72,6 +75,7 @@ launch_counts = {
     "jacobi_zero": 0, "jacobi_zero_half": 0, "jacobi": 0, "jacobi_corr": 0,
     "residual_entry": 0, "residual_pair": 0, "jacobi_v2": 0, "stride2": 0,
     "directional_pass": 0,  # kernel 9, ops/pitfill_kernels.py
+    "label_components": 0, "region_stats": 0, "region_ids": 0,  # kernel 10, ops/components.py
 }
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -157,6 +161,12 @@ def _library() -> ctypes.CDLL:
     lib.sat_directional_pass.restype = i
     lib.sat_directional_geometry.argtypes = [p, p, p]
     lib.sat_directional_geometry.restype = i
+    lib.sat_label_components.argtypes = [p, p, i, i, i, p]
+    lib.sat_label_components.restype = i
+    lib.sat_region_stats.argtypes = [p, i, i, p, p, p, p, p, p, p]
+    lib.sat_region_stats.restype = i
+    lib.sat_region_ids.argtypes = [p, i, i, p, p, p]
+    lib.sat_region_ids.restype = i
     return lib
 
 

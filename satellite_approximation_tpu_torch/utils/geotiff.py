@@ -324,6 +324,24 @@ def write_geotiff(
     im.save(Path(output_path), format="TIFF", **kwargs)
 
 
+def write_geotiff_deflated(
+    values: np.ndarray, output_path: Path | str, template_path: Path | str | None = None
+) -> None:
+    """A (H, W) array as a deflate-compressed single-band GeoTIFF through the
+    minimal codec (``utils/tiffmb.py``), geo metadata copied from the
+    template as in :func:`write_geotiff`. zlib releases the GIL while it
+    compresses, where PIL's libtiff encoder holds it for the whole raster
+    (~1 s for a 5490^2 mask): a writer thread that uses this leaves the
+    other threads' Python running."""
+    from .tiffmb import write_multiband_tiff
+
+    values = np.asarray(values)
+    if values.ndim != 2:
+        raise IOError_(f"write_geotiff_deflated expects a 2-D array, got shape {values.shape}")
+    write_multiband_tiff(values, output_path, extra_tags=_geo_tags_from_template(template_path),
+                         compression="deflate")
+
+
 def _geo_tags_from_template(
     template_path: Path | str | None,
 ) -> list[tuple[int, int, object]]:

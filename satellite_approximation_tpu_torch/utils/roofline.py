@@ -343,6 +343,15 @@ def directional_pass_work(h: int, w: int) -> tuple[int, int]:
     return 12 * h * w, 6 * h * w
 
 
+def components_work(h: int, w: int) -> tuple[int, int]:
+    """Kernel 10's work in labelling an (h, w) bool mask: (bytes,
+    operations). The mask read once (1 B a pixel), a label written (4 B),
+    reread and rewritten by the compression (8 B): 13 B a pixel; the tests
+    of up to four earlier neighbours and a compare or two more, about 8
+    operations a pixel."""
+    return 13 * h * w, 8 * h * w
+
+
 def kernel_work(um: torch.Tensor, c: int, sweeps: int, stride2_mode: str = "both") -> dict:
     """Per kernel at (c, H, W) f32 on the mask ``um``: (dense bytes, bytes
     this mask needs, flops). Dense: every operand read once, every output

@@ -119,14 +119,19 @@ class TestDetectAgainstJax:
         assert timer.routes["alpha, histograms, final sampling"].startswith("host") == host
 
     def test_big_scene_device_route_overlaps_its_writes(self, scene, reference, tmp_path, monkeypatch):
-        """backend "torch" on a big scene: partition and mask writes run on
-        workers and are joined before ``detect`` returns."""
+        """backend "torch" on a big scene: the mask writes run on workers and
+        are joined before ``detect`` returns; the cloud partition runs on the
+        calling thread, right before the matching, with nothing to wait
+        for."""
         monkeypatch.setattr(t_pipe, "BIG_SCENE_PIXELS", 1)
         timer = profiling.StageTimer()
         status, masks = run(t_pipe, t_geotiff, tmp_path / "d", scene,
                             detection_config(t_config, "torch", "torch"), device="cpu", timer=timer)
         assert_same(status, masks, reference)
-        assert "cloud partition (wait)" in [name for name, _ in timer.stages]
+        main = [name for name, _, worker, nested in timer._log if not (worker or nested)]
+        assert "cloud partition (wait)" not in main
+        assert main.index("cloud partition") + 1 == main.index("cloud-shadow matching")
+        assert "write shadow masks" in [name for name, _, worker, _ in timer._log if worker]
 
     def test_files_on_disk_instead_of_inputs(self, scene, reference, tmp_path):
         work = tmp_path / "d"

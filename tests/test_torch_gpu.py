@@ -28,10 +28,13 @@ from satellite_approximation_tpu_torch.models import multigrid as mg
 from satellite_approximation_tpu_torch.models.cg import neighbor_degree
 from satellite_approximation_tpu_torch.ops import stencil_kernels as K
 from torch_parity import (  # noqa: F401 — cuda_device is a fixture
+    COMPONENT_KINDS,
+    COMPONENT_SHAPES,
     CPU,
     V2_EDGE_KINDS,
     assert_bitwise,
     bench_system,
+    component_mask,
     cuda_device,
     edge_mask,
     make_mask,
@@ -42,6 +45,7 @@ from torch_parity import (  # noqa: F401 — cuda_device is a fixture
 
 PRE = mg._smoother_omegas(mg._PRE_SMOOTH)
 POST = tuple(reversed(mg._smoother_omegas(mg._POST_SMOOTH)))
+COMPONENT_IDS = ["x".join(map(str, s)) for s in COMPONENT_SHAPES]
 # partial tiles in both directions, a single exact tile, a thin strip
 SHAPES = [(2, 137, 201), (1, 48, 48), (1, 30, 1000)]
 
@@ -598,18 +602,61 @@ class TestDetectionOpsOnCard:
         want = components.partition_regions(m, 3)
         assert native.available(), "g++ is needed beside nvcc"
         monkeypatch.setattr(native, "get_lib", lambda: None)
-        seen, real = [], components.connected_components
+        seen, real = [], components.label_components
 
         def recording(mask, connectivity=8):
             seen.append(mask.device.type)
             return real(mask, connectivity)
 
-        monkeypatch.setattr(components, "connected_components", recording)
+        monkeypatch.setattr(components, "label_components", recording)
         got = components.partition_regions(m, 3)
         id_map, region_map = laplace.find_connected_components(m, 3)
         assert seen == ["cuda", "cuda"]
         assert np.array_equal(got[0], want[0]) and got[1] == want[1]
         assert np.array_equal(id_map, want[0]) and len(region_map) == len(want[1])
+
+    @pytest.mark.parametrize("connectivity", [8, 4])
+    @pytest.mark.parametrize("kind", COMPONENT_KINDS)
+    @pytest.mark.parametrize("shape", COMPONENT_SHAPES, ids=COMPONENT_IDS)
+    def test_label_components_kernel_bitwise(self, cuda_device, shape, kind, connectivity):
+        """Kernel 10 against its plain version on the card, bit for bit."""
+        from satellite_approximation_tpu_torch.ops import components
+
+        mask = torch.from_numpy(component_mask(*shape, kind)).to(cuda_device)
+        before = K.launch_counts["label_components"]
+        got = components.label_components(mask, connectivity)
+        assert K.launch_counts["label_components"] == before + 1
+        assert_bitwise(got, components.connected_components(mask, connectivity))
+
+    @pytest.mark.parametrize("min_area", [1, 3])
+    @pytest.mark.parametrize("kind", COMPONENT_KINDS)
+    @pytest.mark.parametrize("shape", COMPONENT_SHAPES, ids=COMPONENT_IDS)
+    def test_partition_on_card_equals_flood(self, cuda_device, shape, kind, min_area):
+        """Kernel 10 and the two region passes: the id map (left on the card)
+        and the regions equal to the native flood's."""
+        _assert_partition_equals_flood(component_mask(*shape, kind), min_area, cuda_device)
+
+    def test_components_on_a_tile_scene_mask(self, cuda_device):
+        """The raw cloud mask of the benchmark's 5490^2 scene at 25 % cover:
+        kernel 10 bit-equal to the plain version, the partition on the card
+        equal to the native flood."""
+        from portbench.traffic import scenes
+        from satellite_approximation_tpu_torch.config import DEFAULT_DETECTION as cfg
+        from satellite_approximation_tpu_torch.models.detection import cloud_mask
+        from satellite_approximation_tpu_torch.ops import components
+
+        scene = scenes.detect_scene(5490, 5490, 0.25, scenes.generator(2147483659, cuda_device),
+                                    cuda_device)
+        clp, cld = (torch.from_numpy(scene[k]).to(cuda_device).float() / top
+                    for k, top in (("CLP", 255.0), ("CLD", 100.0)))
+        gen = cloud_mask.generate_cloud_mask_ignore_low_probability(
+            clp, cld, torch.from_numpy(scene["SCL"]).to(cuda_device), cfg.cloud_mask,
+            device_output=True)
+        mask = gen.cloud_mask_no_processing.contiguous()
+        assert 0.1 < float(mask.float().mean()) < 0.6
+        assert_bitwise(components.label_components(mask), components.connected_components(mask))
+        regions = _assert_partition_equals_flood(mask.cpu().numpy(), 3, cuda_device)
+        assert len(regions) > 10
 
     def test_refinement_ops(self, cuda_device):
         from satellite_approximation_tpu_torch.models.detection import refinement, refinement_torch
@@ -646,6 +693,20 @@ class TestDetectionOpsOnCard:
         got = geometry.ls_point_equal_to_device(zen, azi, (700, 900), 15.0, 785.0, device=cuda_device)
         want = geometry.ls_point_equal_to_chunked(zen, azi, (700, 900), 15.0, 785.0)
         assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+
+
+def _assert_partition_equals_flood(m, min_area, device):
+    from satellite_approximation_tpu_torch import native
+    from satellite_approximation_tpu_torch.ops import components
+
+    labels = components.label_components(torch.from_numpy(m).to(device))
+    id_map, regions = components.partition_labels(labels, min_area)
+    assert native.available(), "g++ is needed beside nvcc"
+    want_map, count = native.flood_partition(m, min_area)
+    assert id_map.device.type == "cuda" and id_map.dtype == torch.int32
+    assert np.array_equal(id_map.cpu().numpy(), want_map)
+    assert regions == components._regions_from_labels(want_map, count)
+    return regions
 
 
 def _detect(scene, n, backends, device, work, mesh="auto"):
@@ -688,6 +749,21 @@ class TestDetectOnCard:
             assert np.logical_and(card[name], cpu[name]).sum() / union >= 0.995, name
         assert card_status.percent_clouds == cpu_status.percent_clouds
         assert card_status.percent_shadows == pytest.approx(cpu_status.percent_shadows, abs=1e-3)
+
+    @pytest.mark.parametrize("backends", [("host", "native"), ("torch", "torch")],
+                             ids=["host-route", "all-device-route"])
+    def test_partition_launches_kernel_10_on_the_device_route(self, cuda_device, tmp_path,
+                                                               backends):
+        """The device route partitions its mask on the card (kernel 10 and
+        both region passes launch); the host route takes the native flood
+        and launches none."""
+        from torch_parity import mini_scene
+
+        n = 512
+        K.reset_launch_counts()
+        _detect(mini_scene(n), n, backends, cuda_device, tmp_path / "card")
+        launched = [K.launch_counts[k] for k in ("label_components", "region_stats", "region_ids")]
+        assert launched == ([1, 1, 1] if backends[0] == "torch" else [0, 0, 0])
 
     def test_sweep_on_card_equals_native_scan(self, cuda_device):
         """Matching from the same clouds, masks and positions: the sweep on

@@ -52,6 +52,45 @@ def small_mask(h, w, seed=3):
     return make_mask(h, w, seed=seed, n=10, margin=4, div=6)
 
 
+# kernel 10's shapes and masks (tests/test_torch_components.py, the card tests)
+COMPONENT_SHAPES = [(1, 1), (1, 300), (300, 1), (37, 53), (257, 131)]
+COMPONENT_KINDS = ["all-true", "all-false", "checkerboard", "spiral", "random-0.4", "random-0.6"]
+
+
+def spiral(h, w):
+    """A one-pixel spiral from the top left corner inwards, its turns one
+    pixel apart: one 8-connected component whose diameter is its length."""
+    m = np.zeros((h, w), bool)
+    r = c = 0
+    dr, dc = 0, 1
+    m[0, 0] = True
+    turns = 0
+    while turns < 2:
+        nr, nc, ar, ac = r + dr, c + dc, r + 2 * dr, c + 2 * dc
+        inside = 0 <= nr < h and 0 <= nc < w
+        touches = 0 <= ar < h and 0 <= ac < w and m[ar, ac]
+        if inside and not m[nr, nc] and not touches:
+            r, c, turns = nr, nc, 0
+            m[r, c] = True
+        else:
+            dr, dc, turns = dc, -dr, turns + 1
+    return m
+
+
+def component_mask(h, w, kind, seed=91):
+    """One of :data:`COMPONENT_KINDS`: the diagonal checkerboard is one
+    component under 8-connectivity and single pixels under 4."""
+    if kind == "all-true":
+        return np.ones((h, w), bool)
+    if kind == "all-false":
+        return np.zeros((h, w), bool)
+    if kind == "checkerboard":
+        return np.add.outer(np.arange(h), np.arange(w)) % 2 == 0
+    if kind == "spiral":
+        return spiral(h, w)
+    return np.random.default_rng(seed).random((h, w)) < float(kind.split("-")[1])
+
+
 def smooth(h, w, seed):
     """bench.py's ``smooth``: a random field under four 4-neighbour means."""
     r = np.random.default_rng(seed)
