@@ -11,9 +11,8 @@ from __future__ import annotations
 
 import dataclasses
 
-# full-tile-class gate shared by the pipeline stages: scenes at/above this
-# pixel count route through the big-raster policies (host-native shadow
-# stage, chunked LS, native histograms/sampling)
+# full-tile-class gate in pixels, read only by models/detection/placement
+# (big_scene); placement.place decides from it where detect's stages run
 BIG_SCENE_PIXELS = 16_000_000
 
 
@@ -55,9 +54,8 @@ class MatchingConfig:
     min_support_pixels: int = 5  # CloudShadowMatching.cpp:93
     trim_lo: float = 0.1  # CloudShadowMatching.cpp:195
     trim_hi: float = 0.9
-    # "auto": native C++ scan when the library is available, except for big
-    #   scenes on a CUDA device, which take the device sweep.
-    # "native" / "torch": force one backend (equality-tested pair).
+    # "native" (C++ scan) / "torch" (device sweep): force one backend
+    # (equality-tested pair); "auto": placement.native_matching decides.
     backend: str = "auto"
     # device sweep: most heights per batched pass (473 in all); the sweep
     # also bounds a pass by its window cells, so this only caps small buckets
@@ -86,15 +84,11 @@ class RefinementConfig:
         1.0 / 31.0,
     )
     surface_resolution: int = 256  # :206
-    # "host": numpy/scipy for every stage (reference-exact). Full-tile-class
-    #   rasters use the bit-exact native C++ accelerators (priority-flood
-    #   pit fill, one-pass histograms, OpenMP sampling) when the library is
-    #   available.
+    # "host": numpy/scipy for every stage (reference-exact; full-tile-class
+    #   rasters take the bit-exact native C++ passes where the library is).
     # "torch": the device backend (models/detection/refinement_torch) for
     #   every stage, equality-tested against "host".
-    # "auto" (default): "torch" for big scenes on a CUDA device; otherwise
-    #   "host", except that alpha / histograms / final sampling follow the
-    #   shadow stage's rasters when it left them as tensors.
+    # "auto" (default): placement.place decides, stage by stage.
     backend: str = "auto"
 
 

@@ -36,11 +36,12 @@ import torch
 import torch.nn.functional as F
 
 from ... import native
-from ...config import BIG_SCENE_PIXELS, MatchingConfig
+from ...config import MatchingConfig
 from ...device import as_tensor, resolve_device
 from ...ops import geometry
 from ...ops.masks import fetch_mask, push_mask
 from ...ops.stats import trimmed_average
+from . import placement
 from .cloud_mask import CloudObject
 
 _BUCKETS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
@@ -419,15 +420,16 @@ def match_clouds_shadows(
 
     Two equivalent backends (equality-tested): the batched window sweep on
     ``device`` (``None``: where the masks lie if they are tensors, else the
-    CUDA device), and the native C++ scan. "auto" takes the device sweep for
-    big scenes on a CUDA device, or when the native library is missing, and
-    the native scan otherwise. ``use_native=False`` forces the device path.
+    CUDA device), and the native C++ scan. ``use_native=None`` takes the
+    backend ``placement.native_matching`` picks for ``config.backend``;
+    ``use_native=False`` forces the device path.
 
     ``sweep_fn``: optional replacement for the similarity-sweep kernel
     (same call contract as :func:`_bucket_sweep`) — the hook for a sweep
     sharded over several devices that shares ALL of this function's
     orchestration (bucketing, passes, detail extraction, mask compositing).
-    Forces the device route.
+    Forces the device route; its ``shards`` attribute, where it has one,
+    goes into the route.
     """
     if timer is None:
         from ...utils.profiling import StageTimer
@@ -444,17 +446,10 @@ def match_clouds_shadows(
     if sweep_fn is not None:
         use_native = False
     if use_native is None:
-        if config.backend == "native":
-            use_native = True
-        elif config.backend == "torch":
-            use_native = False
-        else:
-            big_scene = int(np.prod(cloud_mask.shape)) >= BIG_SCENE_PIXELS
-            use_native = native.available() and not (
-                big_scene and sweep_device().type == "cuda"
-            )
-    timer.routes["matching"] = (
-        "host, native scan" if use_native else f"device sweep ({sweep_device()})")
+        use_native = placement.native_matching(
+            int(np.prod(cloud_mask.shape)), sweep_device(), config.backend)
+    timer.routes["matching"] = placement.matching_route(
+        use_native, sweep_device(), getattr(sweep_fn, "shards", None))
     hgt, wdt = cloud_mask.shape
     heights = height_sweep(config)
 

@@ -17,8 +17,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ... import native
-from ...config import BIG_SCENE_PIXELS, DEFAULT_DETECTION, DetectionConfig
+from ...config import DEFAULT_DETECTION, DetectionConfig
 from ...device import as_tensor, divide, resolve_device
 from ...ops import geometry
 from ...ops.masks import fetch_mask
@@ -32,7 +31,7 @@ from ...utils import profiling
 from ...utils.profiling import StageTimer
 from ...utils.types import percent_non_zero
 from . import cloud_mask as cm
-from . import matching, refinement, refinement_torch
+from . import matching, placement, refinement, refinement_torch
 from . import shadow_mask as sm
 
 _logger = create_logger("detection.pipeline")
@@ -211,7 +210,7 @@ def detect(
     ``parallel.ShardMesh`` shards them over its shards (the sweep over
     heights, beta over shadows, alpha, the histograms and the final mask
     over rows), bit-equal to the unsharded stages. Only the device-stage
-    route (``device_stages`` below) shards. Anything else raises
+    route (``placement.place``) shards. Anything else raises
     ``ValueError``.
 
     ``device``: ``None`` is the CUDA device (raises without one); ``"cpu"``
@@ -249,20 +248,8 @@ def _detect(params, diagonal_distance, skip_shadow_detection, use_cache, config,
         )
         scl = as_tensor(scl_host, dev)  # upload u8 once; both stages reuse it
 
-        big_scene = clp.numel() >= BIG_SCENE_PIXELS
-        # Stage placement. backend="torch" forces every stage on the device;
-        # "auto" takes the device stages for a big scene on a CUDA device
-        # (the shadow stage, the LS geometry and the refinement, beside the
-        # cloud mask, which always runs there). Ray-cast matching has its
-        # own size-based routing (matching.match_clouds_shadows). On the
-        # CPU the host-native stages win and "auto" keeps them.
-        device_stages = config.refinement.backend == "torch" or (
-            config.refinement.backend == "auto" and big_scene and dev.type == "cuda"
-        )
-        # the device stages shard over the mesh, when there is one
-        det_mesh = mesh if device_stages else None
-        host_shadow = big_scene and not device_stages and native.available()
-        if host_shadow:
+        where = placement.place(clp.numel(), dev, config, mesh)
+        if where.shadow_on_host:
             # host f32 division of u16 values equals the device
             # normalization bit-for-bit
             raw = inputs.get(params.nir_path.stem) if inputs else None
@@ -272,27 +259,12 @@ def _detect(params, diagonal_distance, skip_shadow_detection, use_cache, config,
         else:
             nir = _read_normalized_u8(params.nir_path, np.iinfo(np.uint16).max, inputs, dev)
     shape = tuple(clp.shape)
-    on_dev = f"device ({dev})"
-    sharded = None if det_mesh is None else f"device, sharded over {det_mesh.size} shards"
-    timer.routes.update({
-        "cloud mask": on_dev,
-        # on the device route the raw cloud mask is a tensor on the device
-        "cloud partition": (on_dev if device_stages or not native.available()
-                            else "host, native flood"),
-        "shadow stage": "host, native priority flood" if host_shadow else on_dev,
-        "sun/view geometry": on_dev if device_stages else "host, chunked numpy",
-        "beta map": sharded or (on_dev if device_stages else "host, numpy/scipy"),
-    })
+    timer.routes.update(where.routes(dev))
 
     _logger.debug(" --- Cloud Detection...")
-    all_device = device_stages
-    # big scenes on the device route: the mask writes (D2H fetch + TIFF
-    # encode) run on workers and hide behind the device stages
-    overlap = all_device and big_scene
-
     with timer.stage("cloud mask"):
         generated = cm.generate_cloud_mask_ignore_low_probability(
-            clp, cld, scl, config.cloud_mask, device_output=all_device
+            clp, cld, scl, config.cloud_mask, device_output=where.device_stages
         )
         status.clouds_computed = True
         status.percent_clouds = percent_non_zero(generated.cloud_mask)
@@ -307,7 +279,8 @@ def _detect(params, diagonal_distance, skip_shadow_detection, use_cache, config,
             with timer.stage(stage_name):
                 _write_mask(arr, out_path, params.nir_path)
 
-        if overlap:
+        if where.overlap_writes:
+            # the D2H fetch and the TIFF encode hide behind the device stages
             pending_writes.append(_get_overlap_executor().submit(profiling.carry(task)))
         else:
             task()
@@ -331,9 +304,9 @@ def _detect(params, diagonal_distance, skip_shadow_detection, use_cache, config,
             psm = sm.generate_potential_shadow_mask(
                 nir,
                 generated.cloud_mask_no_processing,
-                scl_host if host_shadow else scl,
+                scl_host if where.shadow_on_host else scl,
                 config.shadow_mask,
-                device_output=all_device,
+                device_output=where.device_stages,
                 device=dev,
             )
 
@@ -353,8 +326,8 @@ def _detect(params, diagonal_distance, skip_shadow_detection, use_cache, config,
             # two equivalent f32-direction reductions (~1e-7 relative
             # agreement, far inside the 25 m height quantization of the
             # downstream sweep): host chunked numpy, or one upload + a
-            # bandwidth-bound device pass on the all-device route
-            if all_device:
+            # bandwidth-bound device pass on the device route
+            if where.device_stages:
                 def ls_point(zen, azi, *args):
                     return geometry.ls_point_equal_to_device(zen, azi, *args, device=dev)
             else:
@@ -387,10 +360,10 @@ def _detect(params, diagonal_distance, skip_shadow_detection, use_cache, config,
             # shards (bit-equal per (height, cloud) cell); the rest of the
             # matching is shared
             sweep_fn = None
-            if det_mesh is not None:
+            if where.mesh is not None:
                 from ...parallel import detect as parallel_detect
 
-                sweep_fn = parallel_detect.sharded_sweep(det_mesh)
+                sweep_fn = parallel_detect.sharded_sweep(where.mesh)
             match = matching.match_clouds_shadows(
                 clouds,
                 cloud_map,
@@ -401,11 +374,10 @@ def _detect(params, diagonal_distance, skip_shadow_detection, use_cache, config,
                 view_pos,
                 config.matching,
                 timer=timer,
+                use_native=where.native_matching,
                 sweep_fn=sweep_fn,
                 device=dev,
             )
-            if det_mesh is not None:
-                timer.routes["matching"] += f", sharded over {det_mesh.size} shards"
         del cloud_map  # a device id map is not held through the refinement
 
         # object-based shadow mask is final after matching — write it while
@@ -415,121 +387,60 @@ def _detect(params, diagonal_distance, skip_shadow_detection, use_cache, config,
         )
 
         _logger.debug(" --- Generating Probability Function...")
-        # device_stages (backend="torch", or "auto" for a big scene on a
-        # CUDA device): alpha / beta / histograms / sampling all run on the
-        # device — beta's inputs (blended CLP, shadow windows) are already
-        # there. Otherwise "auto" follows the data: device refinement only
-        # when the shadow stage left tensors, and beta stays host
-        # (per-shadow EDT windows are cheap on host at small scales).
-        backend = config.refinement.backend
-        dev_refine = device_stages or (
-            backend == "auto" and isinstance(psm.difference_of_pitfill_nir, torch.Tensor)
-        )
-        timer.routes["alpha, histograms, final sampling"] = sharded or (
-            on_dev if dev_refine else "host, numpy or native")
-        alpha_rows = None
+        # the three routes of each stage take the same leading arguments
+        ref_cfg, alpha_rows = config.refinement, None
         with timer.stage("alpha map"):
-            if det_mesh is not None:
+            diff = psm.difference_of_pitfill_nir
+            if where.mesh is not None:
                 # row shards, padded: the sharded stages below chain on them
                 alpha, alpha_rows = parallel_detect.sharded_alpha_map(
-                    psm.difference_of_pitfill_nir, det_mesh,
-                    config.refinement.alpha_a, config.refinement.alpha_b,
-                    padded_output=True,
-                )
-            elif dev_refine:
+                    diff, where.mesh, ref_cfg.alpha_a, ref_cfg.alpha_b, padded_output=True)
+            elif where.refine_on_device:
                 # stays a tensor: its only consumers are device stages
                 alpha = refinement_torch.alpha_map(
-                    psm.difference_of_pitfill_nir,
-                    config.refinement.alpha_a,
-                    config.refinement.alpha_b,
-                    device=dev,
-                )
+                    diff, ref_cfg.alpha_a, ref_cfg.alpha_b, device=dev)
             else:
-                alpha = refinement.alpha_map(psm.difference_of_pitfill_nir, config.refinement)
+                alpha = refinement.alpha_map(diff, ref_cfg)
         with timer.stage("beta map"):
-            if det_mesh is not None:
+            args = (match.shadows, match.solutions, generated.blended_cloud_probability,
+                    diagonal_distance)
+            if where.mesh is not None:
                 # the shadows split over the shards, an exact maximum merges
                 beta = parallel_detect.sharded_beta_map(
-                    match.shadows,
-                    match.solutions,
-                    generated.blended_cloud_probability,
-                    diagonal_distance,
-                    det_mesh,
-                    config.refinement,
-                    device_output=True,
-                )
-            elif device_stages:
-                beta = refinement_torch.beta_map(
-                    match.shadows,
-                    match.solutions,
-                    generated.blended_cloud_probability,
-                    diagonal_distance,
-                    config.refinement,
-                    device_output=True,
-                    device=dev,
-                )
+                    *args, where.mesh, ref_cfg, device_output=True)
+            elif where.device_stages:
+                # its inputs (blended CLP, shadow windows) are on the device
+                beta = refinement_torch.beta_map(*args, ref_cfg, device_output=True, device=dev)
             else:
-                beta = refinement.beta_map(
-                    match.shadows,
-                    match.solutions,
-                    generated.blended_cloud_probability,
-                    diagonal_distance,
-                    config.refinement,
-                )
-                if dev_refine:
+                # per-shadow EDT windows are cheap on the host at small scales
+                beta = refinement.beta_map(*args, ref_cfg)
+                if where.refine_on_device:
                     beta = as_tensor(beta, dev)  # upload once; surface + sampling reuse
         with timer.stage("probability surface"):
-            if det_mesh is not None:
+            args = (match.shadow_mask, alpha, beta)
+            if where.mesh is not None:
                 # row-sharded histograms, merged by exact int32 sums
                 surface = parallel_detect.sharded_probability_map(
-                    match.shadow_mask, alpha, beta, det_mesh, config.refinement,
-                    rows=alpha_rows,
-                )
-            elif dev_refine:
-                surface = refinement_torch.probability_map(
-                    match.shadow_mask, alpha, beta, config.refinement, device=dev
-                )
+                    *args, where.mesh, ref_cfg, rows=alpha_rows)
+            elif where.refine_on_device:
+                surface = refinement_torch.probability_map(*args, ref_cfg, device=dev)
             else:
-                surface = refinement.probability_map(
-                    match.shadow_mask, alpha, beta, config.refinement
-                )
+                surface = refinement.probability_map(*args, ref_cfg)
 
         _logger.debug(" --- Final Shadow Mask Generation...")
         with timer.stage("final mask"):
-            if det_mesh is not None:
+            args = (match.shadow_mask, generated.cloud_mask, alpha, beta, surface,
+                    config.probability_threshold)
+            if where.mesh is not None:
                 final = parallel_detect.sharded_improved_shadow_mask(
-                    match.shadow_mask,
-                    generated.cloud_mask,
-                    alpha,
-                    beta,
-                    surface,
-                    config.probability_threshold,
-                    det_mesh,
-                    device_output=all_device,
-                    rows=alpha_rows,
-                )
+                    *args, where.mesh, device_output=where.device_stages, rows=alpha_rows)
                 if isinstance(final, torch.Tensor):
                     final = final.to(dev)
-            elif dev_refine:
+            elif where.refine_on_device:
                 final = refinement_torch.improved_shadow_mask(
-                    match.shadow_mask,
-                    generated.cloud_mask,
-                    alpha,
-                    beta,
-                    surface,
-                    config.probability_threshold,
-                    device_output=all_device,
-                    device=dev,
-                )
+                    *args, device_output=where.device_stages, device=dev)
             else:
-                final = refinement.improved_shadow_mask(
-                    match.shadow_mask,
-                    generated.cloud_mask,
-                    alpha,
-                    beta,
-                    surface,
-                    config.probability_threshold,
-                )
+                final = refinement.improved_shadow_mask(*args)
         _logger.debug("...Finished Algorithm.")
 
         status.shadows_computed = True

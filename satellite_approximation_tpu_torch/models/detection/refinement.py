@@ -21,9 +21,10 @@ from __future__ import annotations
 import numpy as np
 from scipy import ndimage
 
-from ...config import RefinementConfig, BIG_SCENE_PIXELS
+from ...config import RefinementConfig
 from ...ops import geometry
 from .matching import OptimalSolution, ShadowObject
+from .placement import big_scene
 
 
 def alpha_map(nir_difference: np.ndarray, config: RefinementConfig = RefinementConfig()) -> np.ndarray:
@@ -402,7 +403,7 @@ def probability_map(
     temporaries and took ~60 s; the fused pass is ~2 s and bit-identical —
     verified in tests/test_native.py)."""
     alpha = np.asarray(alpha)
-    if alpha.size >= BIG_SCENE_PIXELS:
+    if big_scene(alpha.size):
         from ...native import prob_histograms as native_hists
 
         hists = native_hists(
@@ -454,7 +455,7 @@ def improved_shadow_mask(
     the native OpenMP pass (bit-identical to the numpy gather — compiled
     -ffp-contract=off, same op order; tests/test_native.py)."""
     alpha = np.asarray(alpha)
-    if alpha.size >= BIG_SCENE_PIXELS:
+    if big_scene(alpha.size):
         from ...native import final_mask_sample
 
         out = final_mask_sample(

@@ -15,11 +15,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from ...config import BIG_SCENE_PIXELS, ShadowMaskConfig
+from ...config import ShadowMaskConfig
 from ...device import as_tensor, divide, resolve_device
 from ...ops.blur import gaussian_blur
 from ...ops.masks import SCL, cover_percentage, fetch_mask, scl_mask
 from ...ops.pitfill import pit_fill
+from .placement import big_scene
 
 
 @dataclasses.dataclass
@@ -185,7 +186,7 @@ def generate_potential_shadow_mask(
     and come back whole. Host rasters go to ``device`` (``None``: the CUDA
     device); tensors are processed where ``nir`` lies. ``device_output``
     keeps the mask there too."""
-    big = int(np.prod(nir.shape)) >= BIG_SCENE_PIXELS
+    big = big_scene(int(np.prod(nir.shape)))
     if isinstance(nir, np.ndarray) and big:
         host = _generate_host_native(nir, fetch_mask(cloud_mask), scl, config)
         if host is not None:

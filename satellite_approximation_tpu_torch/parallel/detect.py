@@ -92,6 +92,7 @@ def sharded_sweep(mesh: ShardMesh):
                 ))
         return all_gather(parts, 0, devs[0])[:nh]
 
+    sweep.shards = n  # named in the matching's route
     return sweep
 
 

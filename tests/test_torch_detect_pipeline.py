@@ -106,10 +106,7 @@ class TestDetectAgainstJax:
         """With the big-scene gate forced down, "auto" on the CPU takes the
         host-native shadow stage where the library is, and otherwise leaves
         the shadow stage's rasters as tensors for the device refinement."""
-        from satellite_approximation_tpu_torch.models.detection import refinement, shadow_mask
-
-        for mod in (t_pipe, shadow_mask, refinement):
-            monkeypatch.setattr(mod, "BIG_SCENE_PIXELS", 1)
+        monkeypatch.setattr(t_config, "BIG_SCENE_PIXELS", 1)
         timer = profiling.StageTimer()
         status, masks = run(t_pipe, t_geotiff, tmp_path / "d", scene,
                             detection_config(t_config, "auto", "auto"), device="cpu", timer=timer)
@@ -123,7 +120,7 @@ class TestDetectAgainstJax:
         are joined before ``detect`` returns; the cloud partition runs on the
         calling thread, right before the matching, with nothing to wait
         for."""
-        monkeypatch.setattr(t_pipe, "BIG_SCENE_PIXELS", 1)
+        monkeypatch.setattr(t_config, "BIG_SCENE_PIXELS", 1)
         timer = profiling.StageTimer()
         status, masks = run(t_pipe, t_geotiff, tmp_path / "d", scene,
                             detection_config(t_config, "torch", "torch"), device="cpu", timer=timer)

@@ -176,7 +176,7 @@ class TestShadowMask:
         """With the big-scene gate forced down, a host raster takes the
         host-native route where the library is, else the device route that
         keeps its f32 rasters as tensors; both equal the small-scene route."""
-        monkeypatch.setattr(t_sm, "BIG_SCENE_PIXELS", 1)
+        monkeypatch.setattr(t_config, "BIG_SCENE_PIXELS", 1)
         x, want = jax_stages["x"], jax_stages["psm"]
         cloud = jax_stages["gen"].cloud_mask_no_processing
         got = t_sm.generate_potential_shadow_mask(x["nir"], cloud, x["scl"], device="cpu")
@@ -415,7 +415,7 @@ class TestHostRefinement:
         native histograms and sampling where the library is)."""
         s = jax_stages
         if big:
-            monkeypatch.setattr(t_ref, "BIG_SCENE_PIXELS", 1)
+            monkeypatch.setattr(t_config, "BIG_SCENE_PIXELS", 1)
         surface = t_ref.probability_map(s["match"].shadow_mask, s["alpha"], s["beta"])
         if native_route == "python":
             assert np.array_equal(surface.data, s["surface"].data)
