@@ -22,9 +22,10 @@ idle share; then the pit fill level by level with directional cycles on the
 levels of at least ``_DIRECTIONAL_MIN_SIZE`` cells, on every level and on
 none: the seconds, the cycles, the rounds and sweeps, and the cells swept
 as a multiple of the level's size;
-then the matching in its forms (the separability check and the vector
-form of the affine, the general sweep alone, the vector form alone) and the
-LS geometry stage with no writer thread beside it.
+then the matching in its forms (kernel 11 a bucket a pass, as ``detect``
+sweeps; kernel 11 in the torch form's passes; the torch form, general and
+in the vector form of the affine) and the LS geometry stage with no writer
+thread beside it.
 
 ``--multi-device`` profiles one ``parallel.sharded_fill`` of the 13-band
 2048^2 system on a (1,4) mesh of four shards on the card (as
@@ -158,11 +159,12 @@ def pit_fill_levels(torch, nir, border, card):
 
 def matching_forms(torch, dev, scene, n, card):
     """The stages before the matching by hand (no writer thread runs beside
-    them), then ``match_clouds_shadows`` in turns in three forms: as
-    ``detect`` calls it (the separability check of each pass, then the vector
-    form of the affine), the general per-pixel sweep alone and the vector form
-    alone (both through ``sweep_fn=``, which skips the check). Seconds of
-    each call, and of the LS geometry stage without a writer beside it."""
+    them), then ``match_clouds_shadows`` in turns in four forms: as
+    ``detect`` calls it (kernel 11, one pass a bucket), kernel 11 in the
+    torch form's cloud groups and height passes, and the torch form itself,
+    per pixel and in the vector form of the affine (the last three through
+    ``sweep_fn=``, which keeps the passes). Seconds of each call, and of the
+    LS geometry stage without a writer beside it."""
     import numpy as np
 
     from satellite_approximation_tpu_torch.config import DEFAULT_DETECTION as cfg
@@ -204,9 +206,13 @@ def matching_forms(torch, dev, scene, n, card):
     cs.log(f"[profile] sun/view geometry {n}x{n} with no writer thread beside it: "
            + ", ".join(f"{t:.3f}" for t in geo) + f" s [{card}]")
 
-    forms = {"check + vector form (as detect)": None,
-             "general sweep, no check": matching._bucket_sweep,
-             "vector form, no check": matching._bucket_sweep_sep}
+    def torch_form(*args, **kwargs):
+        return matching._sweep(*args, **kwargs, separable=False)
+
+    forms = {"kernel 11, a bucket a pass (as detect)": None,
+             "kernel 11 in the torch form's passes": matching._bucket_sweep,
+             "torch form": torch_form,
+             "torch form, vector form of the affine": matching._bucket_sweep_sep}
 
     def match(sweep_fn):
         return matching.match_clouds_shadows(

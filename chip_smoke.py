@@ -75,10 +75,12 @@ Phases (each raises on failure, so the run exits non-zero):
    the card equal to the native flood, kernel 10's time beside its byte
    bound and the plain version's, and the partition's time on the card
    beside the host flood's (the small and ragged shapes are the card
-   tests'). 8b at
+   tests'); kernel 11 bit-equal to the torch form on an edge-case scene
+   and on every bucket of the benchmark's 5490^2 scene, its time a call
+   beside its byte bound and the torch form's. 8b at
    4096^2 (>= 16 Mpix, so backend "auto" takes the device stages), cold
-   and warm, each with kernels 9's and 10's launches counted from 0 (both
-   must launch), the stage table, each stage's route and the peak device
+   and warm, each with kernels 9's, 10's and 11's launches counted from 0
+   (all three must launch), the stage table, each stage's route and the peak device
    memory; then the stage's pit fill of that scene level by level (cycles,
    rounds, sweeps; every level of at least ``_DIRECTIONAL_MIN_SIZE`` cells
    must run cycles), bit-equal to the native flood of the same NIR and
@@ -184,6 +186,9 @@ KERNELS = {
     # nor kernel 10: the JAX package labels by lax propagation
     "label_components": (f"{CSRC}/components.cu",
                          "satellite_approximation_tpu/ops/components.py:28"),
+    # nor kernel 11: the JAX package's similarity sweep is XLA gathers
+    "similarity_sweep": (f"{CSRC}/sweep.cu",
+                         "satellite_approximation_tpu/models/detection/matching.py:169"),
 }
 STRIDE2_TIMED = "both"  # the mode whose times stand in the kernels line
 # the kernels --against times, each on the bench mask and the 60 % mask
@@ -1084,13 +1089,15 @@ def synthesize(n: int, seed: int = 7):
 MASK_FILES = ("cloud_mask", "potential_shadows", "object_based_shadows", "shadow_mask")
 
 
-def run_detect(torch, dev, scene, n, backends, label, card, mesh="auto", tag="8 detect"):
+def run_detect(torch, dev, scene, n, backends, label, card, mesh="auto", tag="8 detect",
+               diag=None):
     """One ``detect`` of ``scene`` on the card, from pre-decoded rasters to
     the four mask files in a temporary directory: (status, masks read back
     from the files, StageTimer, seconds, peak GiB). The peak is the most the
     call held above what was allocated before it (earlier phases leave their
     cached hierarchies on the card). ``backends``: (refinement, matching)
-    backend values; ``mesh``: detect's mesh setting; ``tag``: the log prefix."""
+    backend values; ``mesh``: detect's mesh setting; ``tag``: the log prefix;
+    ``diag``: the scene's diagonal in km (None: an n^2 crop of a tile's)."""
     import dataclasses
     import tempfile
 
@@ -1106,7 +1113,8 @@ def run_detect(torch, dev, scene, n, backends, label, card, mesh="auto", tag="8 
         refinement=dataclasses.replace(DEFAULT_DETECTION.refinement, backend=backends[0]),
         matching=dataclasses.replace(DEFAULT_DETECTION.matching, backend=backends[1]),
     )
-    diag = get_diagonal_distance(-114.0, 50.5, -112.5, 51.5) * (n / TILE)
+    if diag is None:
+        diag = get_diagonal_distance(-114.0, 50.5, -112.5, 51.5) * (n / TILE)
     with tempfile.TemporaryDirectory() as tmp:
         work = Path(tmp)
         # only B08 needs to exist on disk (mask writes copy its GeoTIFF tags)
@@ -1438,6 +1446,102 @@ def check_components(torch, dev, card):
     return entry
 
 
+SWEEP_SCENE = 5490  # the benchmark scene whose buckets kernel 11 is checked and timed on
+SWEEP_EDGE_BUCKETS = ((64, 32), (1024, 512))  # the edge cases' buckets
+PAIR_KEYS = ("min_x", "min_y", "max_x", "max_y", "a2", "delta")
+
+
+def _torch_form_sweep(torch, matching, args, kw):
+    """The similarities of one captured ``_bucket_sweep`` call by the torch
+    form, in the cloud groups and height passes it takes on the CPU."""
+    wb, hb = kw["wb"], kw["hb"]
+    nh, nc = kw["min_x"].shape
+    grp = max(1, matching._SWEEP_GROUP_CELLS // (wb * hb))
+    static = {k: kw[k] for k in ("wb", "hb", "width", "height", "pf", "min_support")}
+    cols = []
+    for c0 in range(0, nc, grp):
+        sel = slice(c0, c0 + grp)
+        ch = max(1, matching._SWEEP_PASS_CELLS // (len(range(nc)[sel]) * wb * hb))
+        parts = [matching._sweep(*args[:3], args[3][sel].contiguous(),
+                                 **{k: kw[k][h0 : h0 + ch, sel].contiguous() for k in PAIR_KEYS},
+                                 **static, separable=False)
+                 for h0 in range(0, nh, ch)]
+        cols.append(torch.cat(parts, dim=0))
+    return torch.cat(cols, dim=1)
+
+
+def check_sweep(torch, dev, card):
+    """Kernel 11 (``csrc/sweep.cu``), the matching's similarity sweep: bit
+    for bit against the torch form on a small edge-case scene (every kind of
+    pair of ``tests/torch_parity.sweep_case`` in a 64x32 and a 1024x512
+    bucket) and on every bucket of the benchmark's 5490^2 scene (captured
+    from one ``detect``, the benchmark's diagonal); there kernel 11's time a
+    call (its launches summed) beside its byte bound (6 B a true-box cell)
+    and the torch form's. Returns kernel 11's entry of the kernels line."""
+    from portbench.traffic import scenes
+    from satellite_approximation_tpu_torch.models.detection import matching
+    from satellite_approximation_tpu_torch.ops import sweep_kernels
+    from satellite_approximation_tpu_torch.utils.roofline import bound_ms, sweep_work
+
+    sys.path.insert(0, str(REPO / "tests"))
+    from torch_parity import SWEEP_KINDS, sweep_case
+
+    entry = {"max_abs_err": 0.0, "library_ms": None}
+    for bucket in SWEEP_EDGE_BUCKETS:
+        for kind in SWEEP_KINDS:
+            rasters, ids, pairs, static = sweep_case(*bucket, kind, seed=sum(bucket))
+            ops = [torch.from_numpy(a).to(dev) for a in (*rasters, ids, *map(pairs.get, PAIR_KEYS))]
+            got = matching._bucket_sweep(*ops, **static, min_support=5)
+            want = matching._sweep(*ops, **static, min_support=5, separable=False)
+            entry["max_abs_err"] = max(entry["max_abs_err"], _bitwise(torch, got, want))
+    log(f"[8 detect] 8a kernel 11 bit-equal to the torch form on the edge cases "
+        f"({', '.join(SWEEP_KINDS)}) in the buckets {SWEEP_EDGE_BUCKETS}")
+
+    n = SWEEP_SCENE
+    config = json.loads((REPO / "portbench/configs/s2-l2a-tile-20m.json").read_text())
+    scene = scenes.detect_scene(n, n, 0.25, scenes.generator(2147483659, dev), dev)
+    calls, real = [], matching._bucket_sweep
+
+    def recording(*args, **kw):
+        out = real(*args, **kw)
+        calls.append((args, kw, out))
+        return out
+
+    matching._bucket_sweep = recording
+    try:
+        run_detect(torch, dev, scene, n, ("auto", "auto"), "8a kernel 11 scene", card,
+                   diag=config["diagonal_km"])
+    finally:
+        matching._bucket_sweep = real
+    del scene
+    if not calls:
+        raise AssertionError("8a kernel 11: the benchmark scene's detect swept no bucket")
+    pairs = cells = 0
+    for args, kw, got in calls:
+        entry["max_abs_err"] = max(entry["max_abs_err"],
+                                   _bitwise(torch, got, _torch_form_sweep(torch, matching, args,
+                                                                          kw)))
+        wb, hb = kw["wb"], kw["hb"]
+        box_w = torch.minimum(kw["max_x"], kw["min_x"] + wb - 1) - kw["min_x"] + 1
+        box_h = torch.minimum(kw["max_y"], kw["min_y"] + hb - 1) - kw["min_y"] + 1
+        cells += int((box_w.long() * box_h.long()).sum())
+        pairs += kw["min_x"].numel()
+    launch = [(args, {k: v for k, v in kw.items() if k != "min_support"}) for args, kw, _ in calls]
+    ms = sum(_median_ms(torch, lambda a=a, k=k: sweep_kernels.pair_counts(*a, **k), runs=5)
+             for a, k in launch)
+    plain = 1e3 * _host_median_s(
+        torch, lambda: [_torch_form_sweep(torch, matching, a, k) for a, k, _ in calls], runs=1)
+    bound, by = bound_ms(*sweep_work(cells))
+    log(f"[8 detect] 8a kernel 11 {n}x{n} benchmark scene: {len(calls)} buckets, {pairs} "
+        f"(height, cloud) pairs, {cells} true-box cells, bit-equal to the torch form; kernel "
+        f"{ms:.4f} ms a call ({len(calls)} launches), bound {bound:.4f} ms by {by} "
+        f"({bound / ms:.1%}), torch form {plain:.3f} ms [{card}]")
+    entry.update(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by)
+    del calls, launch
+    torch.cuda.empty_cache()
+    return entry
+
+
 def detect_pit_fill(torch, dev, scene, card):
     """The pit fill of ``detect``'s potential-shadow stage on ``scene``: the
     normalized NIR and the border the stage computes, through ``pit_fill``
@@ -1492,9 +1596,10 @@ def phase_detect(torch, dev, card, big=4096):
     and warm, each with kernel 9's launches counted from 0, then the stage's
     pit fill level by level against the flood (:func:`detect_pit_fill`).
     Kernel 10 against its plain version and the partition on the card against
-    the flood come after kernel 9 (:func:`check_components`). Returns, for
-    kernels 9 and 10 by name, (the entry of the kernels line, the launches in
-    the warm run)."""
+    the flood come after kernel 9 (:func:`check_components`), then kernel 11
+    against the torch form (:func:`check_sweep`). Returns, for kernels 9, 10
+    and 11 by name, (the entry of the kernels line, the launches in the warm
+    run)."""
     from satellite_approximation_tpu_torch import native
     from satellite_approximation_tpu_torch.config import BIG_SCENE_PIXELS
     from satellite_approximation_tpu_torch.ops import geometry
@@ -1561,6 +1666,7 @@ def phase_detect(torch, dev, card, big=4096):
             raise AssertionError(f"8a: LS point differs by {rel}")
     entry = check_directional(torch, dev, card)
     entry10 = check_components(torch, dev, card)
+    entry11 = check_sweep(torch, dev, card)
 
     # ---- 8b: full width, the device stages under backend "auto"
     if big * big < BIG_SCENE_PIXELS:
@@ -1573,10 +1679,12 @@ def phase_detect(torch, dev, card, big=4096):
             torch, dev, scene, big, ("auto", "auto"), f"8b {label}", card)
         launches = K.launch_counts["directional_pass"]
         launches10 = K.launch_counts["label_components"]
+        launches11 = K.launch_counts["similarity_sweep"]
         log(f"[8 detect] 8b {label}: {launches} launches of kernel 9 (directional_pass), "
-            f"{launches10} of kernel 10 (label_components)")
-        if not (launches and launches10):
-            raise AssertionError(f"8b {label}: kernel 9 or kernel 10 never launched")
+            f"{launches10} of kernel 10 (label_components), {launches11} of kernel 11 "
+            "(similarity_sweep)")
+        if not (launches and launches10 and launches11):
+            raise AssertionError(f"8b {label}: kernel 9, 10 or 11 never launched")
         log_stages(timer, f"8b {label}")
         on_host = [stage for stage, route in timer.routes.items()
                    if not route.startswith("device") or "host" in route]
@@ -1591,7 +1699,8 @@ def phase_detect(torch, dev, card, big=4096):
     log(f"[8 detect] 8b detect {big}x{big}: cold {out['cold'][2]:.3f} s, warm "
         f"{out['warm'][2]:.3f} s, peak {out['warm'][3]:.3f} GiB [{card}]")
     detect_pit_fill(torch, dev, scene, card)
-    return {"directional_pass": (entry, launches), "label_components": (entry10, launches10)}
+    return {"directional_pass": (entry, launches), "label_components": (entry10, launches10),
+            "similarity_sweep": (entry11, launches11)}
 
 
 # ------------------------------------------------------------------ phase 9: entry points

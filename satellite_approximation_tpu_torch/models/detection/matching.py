@@ -9,13 +9,15 @@ projected bbox — all single-threaded CPU. Here:
 * the projective geometry (two perspectives + affine quad fit + inverse) is
   batched over (cloud × height) in one f64 einsum on the host — thousands of
   4x4 ops, microseconds;
-* the per-pixel similarity scan is a batch of window gathers on the device:
-  every (height, cloud) pair of a pass reads a statically sized window
-  anchored at its projected bbox (masked to its true extent) out of rasters
-  padded so that no window leaves them;
-* clouds are bucketed by window size, a bucket is cut into cloud groups and
-  a group's heights into passes, so that a pass holds a bounded number of
-  window cells whatever the scene.
+* clouds are bucketed by window size; the per-pixel similarity scan of a
+  bucket runs on the device, out of rasters padded so that no window leaves
+  them. On a CUDA device it is kernel 11 (``csrc/sweep.cu``): one launch a
+  bucket, every (height, cloud) pair's two counts in registers over its
+  true box. Elsewhere it is a batch of window gathers (the torch form, the
+  plain version of the kernel): every pair of a pass reads a statically
+  sized window anchored at its projected bbox, masked to its true extent,
+  and a bucket is cut into cloud groups and a group's heights into passes,
+  so that a pass holds a bounded number of window cells whatever the scene.
 
 Semantics match the reference pixel-for-pixel: candidate pixels are
 non-cloud pixels inside the projected-quad bbox whose inverse-mapped
@@ -38,16 +40,18 @@ import torch.nn.functional as F
 from ... import native
 from ...config import MatchingConfig
 from ...device import as_tensor, resolve_device
-from ...ops import geometry
+from ...ops import geometry, sweep_kernels
+from ...ops import stencil_kernels as K
 from ...ops.masks import fetch_mask, push_mask
 from ...ops.stats import trimmed_average
 from . import placement
 from .cloud_mask import CloudObject
 
 _BUCKETS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
-# window cells per cloud group of one bucket, and per batched pass over a
-# group's (height, cloud) pairs: they bound the live window-sized
-# intermediates (about 20 bytes per cell)
+# window cells per cloud group of one bucket, and per batched pass of the
+# torch form over a group's (height, cloud) pairs: they bound the live
+# window-sized intermediates (about 20 bytes per cell) of the torch form's
+# sweep and of the detail pass
 _SWEEP_GROUP_CELLS = 1 << 24
 _SWEEP_PASS_CELLS = 1 << 26
 
@@ -225,6 +229,16 @@ def _pair_counts(
     return cand, hit
 
 
+def _similarity(t, c, min_support: int):
+    """Similarity of each pair from its candidate and hit counts (int32):
+    c / t, or -1.1 under ``min_support`` candidates."""
+    return torch.where(
+        t >= min_support,
+        c.to(torch.float32) / t.to(torch.float32),
+        torch.full((), -1.1, dtype=torch.float32, device=t.device),
+    )
+
+
 def _sweep(
     cmask_f, psm_f, cmap_f, ids, min_x, min_y, max_x, max_y, a2, delta,
     wb, hb, width, height, pf, min_support, separable,
@@ -237,12 +251,7 @@ def _sweep(
     )
     t = cand.sum(dim=(1, 2), dtype=torch.int32)
     c = hit.sum(dim=(1, 2), dtype=torch.int32)
-    sim = torch.where(
-        t >= min_support,
-        c.to(torch.float32) / t.to(torch.float32),
-        torch.full((), -1.1, dtype=torch.float32, device=t.device),
-    )
-    return sim.reshape(nh, nc)
+    return _similarity(t, c, min_support).reshape(nh, nc)
 
 
 def _bucket_sweep(
@@ -256,11 +265,19 @@ def _bucket_sweep(
     (bottom-origin-row) rasters, padded by ``pf`` in front (logical index 0
     sits at padded index pf) and by at least the bucket size behind;
     ``ids`` (Nc,) int32; the bounds (Nh, Nc) int32, ``a2`` (Nh, Nc, 2, 2)
-    and ``delta`` (Nh, Nc, 2) f32, height-major. One batched window pass:
-    the caller bounds Nh * Nc * hb * wb.
+    and ``delta`` (Nh, Nc, 2) f32, height-major.
+
+    The one dispatch point of the sweep: on CUDA operands kernel 11
+    (``ops/sweep_kernels.py``), which keeps each pair's two counts in
+    registers and walks its true box, with no bound on Nh * Nc; elsewhere
+    the torch form, one batched window pass whose intermediates the caller
+    bounds by Nh * Nc * hb * wb. Both give the same bits.
     """
-    return _sweep(cmask_f, psm_f, cmap_f, ids, min_x, min_y, max_x, max_y, a2, delta,
-                  wb, hb, width, height, pf, min_support, separable=False)
+    operands = (cmask_f, psm_f, cmap_f, ids, min_x, min_y, max_x, max_y, a2, delta)
+    if K._on_cuda(sweep_kernels.NAME, operands):
+        t, c = sweep_kernels.pair_counts(*operands, wb, hb, width, height, pf)
+        return _similarity(t, c, min_support)
+    return _sweep(*operands, wb, hb, width, height, pf, min_support, separable=False)
 
 
 def _bucket_sweep_sep(
@@ -351,6 +368,13 @@ def _bucket_size(n: int) -> int:
     return _BUCKETS[-1]
 
 
+def _whole_bucket(dev: torch.device) -> bool:
+    """Whether a bucket is swept in one pass over all its clouds and heights
+    on ``dev``: where `_bucket_sweep` runs kernel 11, which holds no
+    window-sized intermediates."""
+    return dev.type == "cuda"
+
+
 def _match_native(
     clouds, cloud_map, cloud_mask, potential_shadow, config,
     a2, delta, mnx, mxx, mny, mxy, m_all,
@@ -418,18 +442,24 @@ def match_clouds_shadows(
 ) -> MatchCloudsShadowsResults:
     """Match every cloud to its shadow (CloudShadowMatching.cpp:168-197).
 
-    Two equivalent backends (equality-tested): the batched window sweep on
+    Two equivalent backends (equality-tested): the bucketed sweep on
     ``device`` (``None``: where the masks lie if they are tensors, else the
-    CUDA device), and the native C++ scan. ``use_native=None`` takes the
-    backend ``placement.native_matching`` picks for ``config.backend``;
+    CUDA device; kernel 11, one pass a bucket, on a CUDA device), and the
+    native C++ scan. ``use_native=None`` takes the backend
+    ``placement.native_matching`` picks for ``config.backend``;
     ``use_native=False`` forces the device path.
 
     ``sweep_fn``: optional replacement for the similarity-sweep kernel
     (same call contract as :func:`_bucket_sweep`) — the hook for a sweep
     sharded over several devices that shares ALL of this function's
     orchestration (bucketing, passes, detail extraction, mask compositing).
-    Forces the device route; its ``shards`` attribute, where it has one,
-    goes into the route.
+    Forces the device route and the torch form's passes; its ``shards``
+    attribute, where it has one, goes into the route.
+
+    Each bucket's sweep is a stage ``matching/sweep`` with the counts
+    ``pairs`` ((height, cloud) pairs swept), ``cells`` (the cells of their
+    true boxes) and ``kernel`` (1 where kernel 11 swept them, on a CUDA
+    device, 0 for the torch form).
     """
     if timer is None:
         from ...utils.profiling import StageTimer
@@ -527,92 +557,117 @@ def match_clouds_shadows(
             buckets.setdefault(key, []).append(k)
 
         nh = len(heights)
-        for (wb, hb), members in buckets.items():
-            # cloud groups bound a pass's live memory
-            grp = max(1, int(_SWEEP_GROUP_CELLS // (wb * hb)))
-            for m0 in range(0, len(members), grp):
-                sel = np.asarray(members[m0 : m0 + grp])
-                ids = torch.tensor([clouds[k].id for k in sel], dtype=torch.int32, device=dev)
+        # where kernel 11 sweeps (CUDA, no sweep_fn) a bucket goes in one
+        # pass over all its clouds and heights; the torch form's passes and
+        # groups bound its window-sized intermediates
+        whole_bucket = sweep_fn is None and _whole_bucket(dev)
+        sweep = sweep_fn or _bucket_sweep
+        raster_kw = dict(width=wdt, height=hgt, pf=pf)
 
-                def operands(idx):
-                    """Operands of the (height, cloud) pairs ``idx`` picks
-                    out of the height-major (Nh, Nsel, ...) arrays."""
-                    i32 = lambda a: as_tensor(np.ascontiguousarray(a.T[idx], np.int32), dev)
-                    f32 = lambda a: as_tensor(
-                        np.ascontiguousarray(np.swapaxes(a, 0, 1)[idx], np.float32), dev)
-                    return dict(
-                        min_x=i32(mnx[sel]), min_y=i32(mny[sel]),
-                        max_x=i32(mxx[sel]), max_y=i32(mxy[sel]),
-                        a2=f32(a2[sel]), delta=f32(delta[sel]),
-                    )
+        def ids_of(sel):
+            return torch.tensor([clouds[k].id for k in sel], dtype=torch.int32, device=dev)
 
-                def one_pass(g0, ch):
-                    ops = operands(slice(g0, g0 + ch))
-                    sweep = sweep_fn
-                    if sweep is None:
-                        # the vector form of the affine wherever the pinch
-                        # check vouches for every pair of the pass
-                        ok = _sep_metadata(ops["a2"], ops["delta"], ops["min_x"], ops["min_y"],
-                                           wb, hb)
-                        sweep = _bucket_sweep_sep if bool(ok.all()) else _bucket_sweep
-                    return sweep(
-                        cmask_t, psm_t, cmap_t, ids, **ops,
-                        wb=wb, hb=hb, width=wdt, height=hgt, pf=pf,
-                        min_support=config.min_support_pixels,
-                    )
+        def operands(sel, idx):
+            """Operands of the (height, cloud) pairs ``idx`` picks out of the
+            height-major (Nh, len(sel), ...) arrays of the clouds ``sel``."""
+            i32 = lambda a: as_tensor(np.ascontiguousarray(a.T[idx], np.int32), dev)
+            f32 = lambda a: as_tensor(
+                np.ascontiguousarray(np.swapaxes(a, 0, 1)[idx], np.float32), dev)
+            return dict(
+                min_x=i32(mnx[sel]), min_y=i32(mny[sel]),
+                max_x=i32(mxx[sel]), max_y=i32(mxy[sel]),
+                a2=f32(a2[sel]), delta=f32(delta[sel]),
+            )
 
-                with timer.stage(f"matching/sweep {wb}x{hb} n={len(sel)}", "matching/sweep",
-                                 wb=wb, hb=hb, n=len(sel)):
-                    # the heights go in passes of bounded window cells
-                    cells = max(len(sel) * wb * hb, 1)
-                    ch = max(1, min(int(config.height_chunk), int(_SWEEP_PASS_CELLS // cells)))
-                    parts = [one_pass(g0, ch) for g0 in range(0, nh, ch)]
-                    sims = torch.cat(parts, dim=0).cpu().numpy()  # (Nh, Nsel)
-                best_idx = np.argmax(sims, axis=0)  # first max, like `>` keeps first
-                best_sim = sims[best_idx, np.arange(len(sel))]
+        def sweep_sims(sel, wb, hb, ch):
+            """(Nh, len(sel)) similarities of the clouds ``sel``, in passes of
+            ``ch`` heights."""
+            ids = ids_of(sel)
 
-                with timer.stage(f"matching/detail {wb}x{hb} n={len(sel)}", "matching/detail",
-                                 wb=wb, hb=hb, n=len(sel)):
-                    at_best = (best_idx, np.arange(len(sel)))
-                    detail = _bucket_detail(
-                        cmask_t, psm_t, cmap_t, ids, **operands(at_best),
-                        wb=wb, hb=hb, width=wdt, height=hgt, pf=pf,
-                    )
-                    _, c_arr, hits, bx0, by0, bx1, by1 = (d.cpu().numpy() for d in detail)
+            def one_pass(g0):
+                ops = operands(sel, slice(g0, g0 + ch))
+                fn = sweep
+                if not whole_bucket and sweep_fn is None:
+                    # the vector form of the affine wherever the pinch
+                    # check vouches for every pair of the pass
+                    ok = _sep_metadata(ops["a2"], ops["delta"], ops["min_x"], ops["min_y"],
+                                       wb, hb)
+                    fn = _bucket_sweep_sep if bool(ok.all()) else _bucket_sweep
+                return fn(cmask_t, psm_t, cmap_t, ids, **ops, wb=wb, hb=hb, **raster_kw,
+                          min_support=config.min_support_pixels)
 
-                for n, k in enumerate(sel):
-                    cid = clouds[k].id
-                    if best_sim[n] < config.min_similarity:
-                        solutions[cid] = OptimalSolution(
-                            height=0.0, similarity=-1.0, M=np.eye(4), id=cid
-                        )
-                        shadows[cid] = ShadowObject(
-                            id=cid, bounds=None, area=0, window=None, anchor=None
-                        )
-                        continue
-                    hsel = int(best_idx[n])
+            box_w = np.minimum(mxx[sel], mnx[sel] + wb - 1) - mnx[sel] + 1
+            box_h = np.minimum(mxy[sel], mny[sel] + hb - 1) - mny[sel] + 1
+            with timer.stage(f"matching/sweep {wb}x{hb} n={len(sel)}", "matching/sweep",
+                             wb=wb, hb=hb, n=len(sel), pairs=nh * len(sel),
+                             cells=int((box_w * box_h).sum()), kernel=int(dev.type == "cuda")):
+                parts = [one_pass(g0) for g0 in range(0, nh, ch)]
+                return torch.cat(parts, dim=0).cpu().numpy()
+
+        def finish(sel, sims, wb, hb):
+            """Each cloud of ``sel`` at its best height: the detail pass, the
+            solutions and shadows, the composite mask."""
+            best_idx = np.argmax(sims, axis=0)  # first max, like `>` keeps first
+            best_sim = sims[best_idx, np.arange(len(sel))]
+
+            with timer.stage(f"matching/detail {wb}x{hb} n={len(sel)}", "matching/detail",
+                             wb=wb, hb=hb, n=len(sel)):
+                at_best = (best_idx, np.arange(len(sel)))
+                detail = _bucket_detail(
+                    cmask_t, psm_t, cmap_t, ids_of(sel), **operands(sel, at_best),
+                    wb=wb, hb=hb, **raster_kw,
+                )
+                _, c_arr, hits, bx0, by0, bx1, by1 = (d.cpu().numpy() for d in detail)
+
+            for n, k in enumerate(sel):
+                cid = clouds[k].id
+                if best_sim[n] < config.min_similarity:
                     solutions[cid] = OptimalSolution(
-                        height=float(heights[hsel]),
-                        similarity=float(best_sim[n]),
-                        M=m_all[k, hsel],
-                        id=cid,
+                        height=0.0, similarity=-1.0, M=np.eye(4), id=cid
                     )
-                    anchor = (int(mnx[k, hsel]), int(mny[k, hsel]))
-                    win = hits[n]
                     shadows[cid] = ShadowObject(
-                        id=cid,
-                        bounds=(int(bx0[n]), int(by0[n]), int(bx1[n]), int(by1[n])),
-                        area=int(c_arr[n]),
-                        window=win,
-                        anchor=anchor,
+                        id=cid, bounds=None, area=0, window=None, anchor=None
                     )
-                    # composite into the object-based shadow mask
-                    ax, ay = anchor
-                    h_keep = min(hb, hgt - ay)
-                    w_keep = min(wb, wdt - ax)
-                    shadow_mask_flipped[ay : ay + h_keep, ax : ax + w_keep] |= win[
-                        :h_keep, :w_keep
-                    ]
+                    continue
+                hsel = int(best_idx[n])
+                solutions[cid] = OptimalSolution(
+                    height=float(heights[hsel]),
+                    similarity=float(best_sim[n]),
+                    M=m_all[k, hsel],
+                    id=cid,
+                )
+                anchor = (int(mnx[k, hsel]), int(mny[k, hsel]))
+                win = hits[n]
+                shadows[cid] = ShadowObject(
+                    id=cid,
+                    bounds=(int(bx0[n]), int(by0[n]), int(bx1[n]), int(by1[n])),
+                    area=int(c_arr[n]),
+                    window=win,
+                    anchor=anchor,
+                )
+                # composite into the object-based shadow mask
+                ax, ay = anchor
+                h_keep = min(hb, hgt - ay)
+                w_keep = min(wb, wdt - ax)
+                shadow_mask_flipped[ay : ay + h_keep, ax : ax + w_keep] |= win[
+                    :h_keep, :w_keep
+                ]
+
+        for (wb, hb), members in buckets.items():
+            # cloud groups bound the detail pass's live memory (and the torch
+            # form's sweep)
+            grp = max(1, int(_SWEEP_GROUP_CELLS // (wb * hb)))
+            groups = [np.asarray(members[m0 : m0 + grp]) for m0 in range(0, len(members), grp)]
+            if whole_bucket:
+                sims = sweep_sims(np.asarray(members), wb, hb, nh)
+                for g0, sel in zip(range(0, len(members), grp), groups):
+                    finish(sel, sims[:, g0 : g0 + len(sel)], wb, hb)
+                continue
+            for sel in groups:
+                # the heights go in passes of bounded window cells
+                cells = max(len(sel) * wb * hb, 1)
+                ch = max(1, min(int(config.height_chunk), int(_SWEEP_PASS_CELLS // cells)))
+                finish(sel, sweep_sims(sel, wb, hb, ch), wb, hb)
 
     accepted_heights = [
         s.height for s in solutions.values() if s.height >= config.height_min_km

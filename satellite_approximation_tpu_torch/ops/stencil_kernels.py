@@ -19,11 +19,12 @@ wrapper                TPU kernel it replaces                           CUDA sou
 ``stride2``            ``benchmarks/x_stride_probe.py::probe``           stride.cu
 =====================  ==============================================  =============
 
-Kernel 9, the pit fill's directional pass (``csrc/pitfill.cu``), and kernel
+Kernel 9, the pit fill's directional pass (``csrc/pitfill.cu``), kernel
 10, the connected-component labelling with its two passes over the labels
-(``csrc/components.cu``), replace no TPU kernel; their wrappers are in
-``ops/pitfill_kernels.py`` and ``ops/components.py`` and build into the same
-library.
+(``csrc/components.cu``), and kernel 11, the matching's similarity sweep
+(``csrc/sweep.cu``), replace no TPU kernel; their wrappers are in
+``ops/pitfill_kernels.py``, ``ops/components.py`` and
+``ops/sweep_kernels.py`` and build into the same library.
 
 Shared contract of the package's kernels (as the TPU kernels'): one (H, W)
 ``invm`` operand, 1/deg on unknowns and 0 elsewhere (:func:`invm_for_kernel`),
@@ -61,7 +62,7 @@ import torch.nn.functional as F
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 _SOURCES = ("jacobi.cu", "jacobi_v2.cu", "residual.cu", "stride.cu", "pitfill.cu",
-            "components.cu")
+            "components.cu", "sweep.cu")
 _HEADERS = ("stencil.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -76,6 +77,7 @@ launch_counts = {
     "residual_entry": 0, "residual_pair": 0, "jacobi_v2": 0, "stride2": 0,
     "directional_pass": 0,  # kernel 9, ops/pitfill_kernels.py
     "label_components": 0, "region_stats": 0, "region_ids": 0,  # kernel 10, ops/components.py
+    "similarity_sweep": 0,  # kernel 11, ops/sweep_kernels.py
 }
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -167,6 +169,9 @@ def _library() -> ctypes.CDLL:
     lib.sat_region_stats.restype = i
     lib.sat_region_ids.argtypes = [p, i, i, p, p, p]
     lib.sat_region_ids.restype = i
+    lib.sat_similarity_sweep.argtypes = [p, p, p, ll, i, i, i, p, p, p, p, p, p, p, i, i, i, i, p,
+                                         p]
+    lib.sat_similarity_sweep.restype = i
     return lib
 
 

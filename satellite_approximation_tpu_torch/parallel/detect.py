@@ -6,7 +6,8 @@ bit-equal to the single-device route by construction:
 
 * :func:`sharded_sweep`: the ray-cast similarity sweep with the HEIGHT axis
   sharded over every shard of the mesh, the rasters replicated
-  (``matching._bucket_sweep`` on each shard). It plugs into
+  (``matching._bucket_sweep`` on each shard: kernel 11 on a CUDA shard,
+  the torch form on a CPU one). It plugs into
   ``match_clouds_shadows(sweep_fn=...)``, which keeps all the
   orchestration.
 * :func:`sharded_alpha_map`: the elementwise logistic remap over row shards.

@@ -352,6 +352,15 @@ def components_work(h: int, w: int) -> tuple[int, int]:
     return 13 * h * w, 8 * h * w
 
 
+def sweep_work(cells: int) -> tuple[int, int]:
+    """Kernel 11's work in sweeping ``cells`` true-box cells of (height,
+    cloud) pairs: (bytes, operations). A cell reads the cloud mask (1 B),
+    the potential shadow (1 B) and the id map at its cast position (4 B):
+    6 B; the cast's two products and two sums a coordinate, two
+    truncations, four bounds tests and the id compare, about 12 operations."""
+    return 6 * cells, 12 * cells
+
+
 def kernel_work(um: torch.Tensor, c: int, sweeps: int, stride2_mode: str = "both") -> dict:
     """Per kernel at (c, H, W) f32 on the mask ``um``: (dense bytes, bytes
     this mask needs, flops). Dense: every operand read once, every output

@@ -34,16 +34,23 @@ from satellite_approximation_tpu_torch.models.detection import matching as t_mat
 from satellite_approximation_tpu_torch.models.detection import refinement as t_ref
 from satellite_approximation_tpu_torch.models.detection import refinement_torch as t_refdev
 from satellite_approximation_tpu_torch.models.detection import shadow_mask as t_sm
+from satellite_approximation_tpu_torch.ops import sweep_kernels
+from satellite_approximation_tpu_torch.utils import profiling
 from satellite_approximation_tpu_torch.utils.profiling import StageTimer
 from torch_parity import (  # noqa: F401 — native_route is a fixture
     NATIVE_ROUTES,
+    SWEEP_BUCKETS,
+    SWEEP_KINDS,
     assert_within_ulps,
+    bucket_scene,
     jax_package_without_native,
     match_scene,
     mini_diagonal,
     mini_scene,
     native_route,
     normalized,
+    sweep_case,
+    true_box_counts,
 )
 
 N = 192
@@ -397,6 +404,170 @@ class TestMatching:
         else:
             with pytest.raises(RuntimeError, match="bucket cap"):
                 t_match.match_clouds_shadows(*args, timer=timer, device="cpu")
+
+
+def assert_identical_match(got, want):
+    """Two runs of the device sweep: every result equal, the windows (padded
+    to the same bucket) too."""
+    assert_same_match(got, want)
+    for k, w in want.shadows.items():
+        g = got.shadows[k]
+        assert (g.window is None) == (w.window is None)
+        if w.window is not None:
+            assert np.array_equal(g.window, w.window)
+
+
+MATCH_SCENES = ["mini_scene", "match_scene", "match_scene_border", "bucket_scene"]
+
+
+def _match_inputs(name, s):
+    """(clouds, cloud map, cloud mask, potential shadows, diagonal, sun,
+    view) of a scene: ``mini_scene(N)``'s stages, or a synthetic matching
+    scene partitioned by the port."""
+    if name == "mini_scene":
+        return (clouds_to_port(s["clouds"]), s["cloud_map"], s["gen"].cloud_mask_no_processing,
+                s["psm"].mask, DIAG, s["sun"], s["view"])
+    if name == "bucket_scene":
+        mask, psm, sun, view, diag = bucket_scene()
+    else:
+        mask, psm, sun, view, diag = match_scene(shift=(-3, -5), border=name.endswith("border"),
+                                                 seed=11)
+    cmap, clouds = t_cm.partition_cloud_mask(mask, diag, 3, device="cpu")
+    return clouds, cmap, mask, psm, diag, sun, view
+
+
+def _buckets(inputs, config):
+    """{(wb, hb): clouds} of the sweep, from the cast transforms alone."""
+    clouds, _, mask, _, diag, sun, view = inputs
+    heights = t_match.height_sweep(config)
+    _, _, (mnx, mxx, mny, mxy), _ = t_match._cast_transforms(
+        clouds, heights, mask.shape, diag, sun, view)
+    out: dict = {}
+    for k in range(len(clouds)):
+        key = (t_match._bucket_size(int((mxx[k] - mnx[k] + 1).max())),
+               t_match._bucket_size(int((mxy[k] - mny[k] + 1).max())))
+        out[key] = out.get(key, 0) + 1
+    return out, int(((mxx - mnx + 1) * (mxy - mny + 1)).sum()), len(heights)
+
+
+class TestWholeBucketSweep:
+    """Where kernel 11 sweeps (a CUDA device), a bucket goes in one pass over
+    all its clouds and heights. Forced on the CPU (``_whole_bucket``),
+    ``_bucket_sweep`` runs the torch form through the same dispatch point:
+    the results must be those of the groups and passes."""
+
+    @pytest.mark.parametrize("budget", ["default", "small"])
+    @pytest.mark.parametrize("scene", MATCH_SCENES)
+    def test_one_pass_a_bucket_equals_groups_and_passes(self, jax_stages, scene, budget,
+                                                         monkeypatch):
+        inputs = _match_inputs(scene, jax_stages)
+        config = t_config.MatchingConfig(backend="torch")
+        if budget == "small":  # a cloud group a cloud, a height a pass
+            monkeypatch.setattr(t_match, "_SWEEP_GROUP_CELLS", 1 << 8)
+            monkeypatch.setattr(t_match, "_SWEEP_PASS_CELLS", 1 << 10)
+        want = t_match.match_clouds_shadows(*inputs, config, device="cpu")
+        if scene == "mini_scene":
+            assert_same_match(want, jax_stages["match"])
+
+        calls, real = [], t_match._bucket_sweep
+
+        def recording(*args, **kwargs):
+            calls.append((kwargs["wb"], kwargs["hb"], tuple(kwargs["min_x"].shape)))
+            return real(*args, **kwargs)
+
+        def no_pinch_check(*args):
+            raise AssertionError("the one-pass route takes no separability verdict")
+
+        monkeypatch.setattr(t_match, "_whole_bucket", lambda dev: True)
+        monkeypatch.setattr(t_match, "_bucket_sweep", recording)
+        monkeypatch.setattr(t_match, "_sep_metadata", no_pinch_check)
+        got = t_match.match_clouds_shadows(*inputs, config, device="cpu")
+        assert_identical_match(got, want)
+        buckets, _, nh = _buckets(inputs, config)
+        assert sorted(calls) == sorted((wb, hb, (nh, n)) for (wb, hb), n in buckets.items())
+        if scene == "bucket_scene":
+            assert len(buckets) == 6 and got.shadow_mask.any()
+
+    @pytest.mark.parametrize("native_route", NATIVE_ROUTES, indirect=True)
+    def test_oversized_windows_keep_their_route(self, native_route, monkeypatch):
+        """Clouds wider than the largest bucket still take the native scan
+        on the one-pass route, and the rest are swept a bucket a pass: the
+        results of the groups and passes."""
+        monkeypatch.setattr(t_match, "_BUCKETS", (8, 16))
+        args = (*_match_inputs("bucket_scene", None), t_config.MatchingConfig(backend="torch"))
+        if not native.available():
+            monkeypatch.setattr(t_match, "_whole_bucket", lambda dev: True)
+            with pytest.raises(RuntimeError, match="bucket cap"):
+                t_match.match_clouds_shadows(*args, device="cpu")
+            return
+        want = t_match.match_clouds_shadows(*args, device="cpu")
+        monkeypatch.setattr(t_match, "_whole_bucket", lambda dev: True)
+        timer = StageTimer()
+        got = t_match.match_clouds_shadows(*args, timer=timer, device="cpu")
+        assert_identical_match(got, want)
+        assert "3 cloud(s) with oversized windows on the host native scan" in timer.routes["matching"]
+        names = [name for name, _ in timer.stages]
+        assert any(n.startswith("matching/native scan (oversized") for n in names)
+        assert sorted(n for n in names if n.startswith("matching/sweep ")) == [
+            "matching/sweep 16x8 n=1", "matching/sweep 8x16 n=1", "matching/sweep 8x8 n=1"]
+
+    @pytest.mark.parametrize("whole", [False, True], ids=["passes", "one-pass"])
+    @pytest.mark.parametrize("scene", ["mini_scene", "bucket_scene"])
+    def test_sweep_spans_count_pairs_cells_and_kernel(self, jax_stages, scene, whole,
+                                                      monkeypatch):
+        """Each bucket's sweep span records the pairs it swept, the cells of
+        their true boxes and whether kernel 11 ran (0 for the torch form):
+        summed a call, every (height, cloud) pair and every box cell once,
+        on either route."""
+        inputs = _match_inputs(scene, jax_stages)
+        config = t_config.MatchingConfig(backend="torch")
+        monkeypatch.setattr(t_match, "_whole_bucket", lambda dev: whole)
+        profiling.clear()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            with profiling.call("detect"):
+                t_match.match_clouds_shadows(*inputs, config, device="cpu")
+        spans = [r for r in profiling.records() if r.name == "detect.matching/sweep"]
+        profiling.clear()
+        buckets, cells, nh = _buckets(inputs, config)
+        assert spans and all(r.counts["kernel"] == 0 for r in spans)
+        assert sum(r.counts["pairs"] for r in spans) == nh * len(inputs[0])
+        assert sum(r.counts["cells"] for r in spans) == cells
+        if whole:
+            assert len(spans) == len(buckets)
+
+
+class TestSweepKernelAlgorithm:
+    """Kernel 11's algorithm (``csrc/sweep.cu``) written out in numpy
+    (``torch_parity.true_box_counts``: each pair over its true box clipped
+    to the bucket, the cast rounded op by op) against the torch form: the
+    same counts and similarities. The card tests hold the kernel itself to
+    the torch form."""
+
+    @pytest.mark.parametrize("kind", SWEEP_KINDS)
+    @pytest.mark.parametrize("bucket", SWEEP_BUCKETS[:3], ids=lambda b: f"{b[0]}x{b[1]}")
+    def test_true_box_walk_equals_torch_form(self, bucket, kind):
+        rasters, ids, pairs, static = sweep_case(*bucket, kind, seed=sum(bucket))
+        t, c = true_box_counts(rasters, ids, pairs, **static)
+        got = t_match._bucket_sweep(*map(T, rasters), T(ids), **{k: T(v) for k, v in pairs.items()},
+                                    **static, min_support=5)
+        want = t_match._similarity(T(t), T(c), 5)
+        assert np.array_equal(got.numpy(), want.numpy())
+        assert t.max() > 0 or kind in ("sparse", "absent")
+        if kind == "sparse":
+            assert (t < 5).any()
+        if kind == "absent":
+            assert (t[:, -1] == 0).all()
+
+    def test_kernel_takes_cuda_operands_only(self):
+        rasters, ids, pairs, static = sweep_case(8, 8, "separable")
+        args = (*map(T, rasters), T(ids), *(T(pairs[k]) for k in
+                                            ("min_x", "min_y", "max_x", "max_y", "a2", "delta")))
+        with pytest.raises(ValueError, match="CUDA operands"):
+            sweep_kernels.pair_counts(*args, **static)
+        with pytest.raises(TypeError, match="dtype"):
+            sweep_kernels.pair_counts(args[0].to(torch.int32), *args[1:], **static)
+        with pytest.raises(ValueError, match="shape"):
+            sweep_kernels.pair_counts(*args[:4], args[4][:1], *args[5:], **static)
 
 
 class TestHostRefinement:

@@ -31,15 +31,20 @@ from torch_parity import (  # noqa: F401 — cuda_device is a fixture
     COMPONENT_KINDS,
     COMPONENT_SHAPES,
     CPU,
+    SWEEP_BUCKETS,
+    SWEEP_KINDS,
     V2_EDGE_KINDS,
     assert_bitwise,
     bench_system,
+    bucket_scene,
     component_mask,
     cuda_device,
     edge_mask,
     make_mask,
     random_mask,
     shifted,
+    sweep_case,
+    true_box_counts,
     v2_window_case,
 )
 
@@ -783,6 +788,141 @@ class TestDetectOnCard:
             assert got.shadows[k].bounds == want.shadows[k].bounds
 
 
+_PAIR_OPERANDS = ("min_x", "min_y", "max_x", "max_y", "a2", "delta")
+
+
+def _bucket_scene_inputs(scale):
+    """(clouds, cloud map, cloud mask, potential shadows, diagonal, sun,
+    view) of ``bucket_scene(scale)``, partitioned on the host."""
+    from satellite_approximation_tpu_torch.models.detection import cloud_mask
+
+    mask, psm, sun, view, diag = bucket_scene(scale)
+    cmap, clouds = cloud_mask.partition_cloud_mask(mask, diag, 3)
+    return clouds, cmap, mask, psm, diag, sun, view
+
+
+def _assert_identical_match(got, want):
+    assert np.array_equal(got.shadow_mask, want.shadow_mask)
+    assert got.trimmed_mean_height == want.trimmed_mean_height or (
+        np.isnan(got.trimmed_mean_height) and np.isnan(want.trimmed_mean_height))
+    assert got.solutions.keys() == want.solutions.keys()
+    for k, w in want.solutions.items():
+        g = got.solutions[k]
+        assert (g.height, g.similarity, g.id) == (w.height, w.similarity, w.id)
+        assert np.array_equal(g.M, w.M)
+        gs, ws = got.shadows[k], want.shadows[k]
+        assert (gs.bounds, gs.area, gs.anchor) == (ws.bounds, ws.area, ws.anchor)
+        assert (gs.window is None) == (ws.window is None)
+        if ws.window is not None:
+            assert np.array_equal(gs.window, ws.window)
+
+
+@pytest.mark.gpu
+class TestSimilaritySweepOnCard:
+    @pytest.mark.parametrize("kind", SWEEP_KINDS)
+    @pytest.mark.parametrize("bucket", SWEEP_BUCKETS, ids=lambda b: f"{b[0]}x{b[1]}")
+    def test_kernel_11_bitwise(self, cuda_device, bucket, kind):
+        """Kernel 11's counts and similarities against the torch form on the
+        card, bit for bit, from 8x8 to 4096x2048 buckets: separable and
+        sheared casts, boxes clipped at each raster edge, casts that leave
+        the raster, pairs under the minimum support, an id absent from its
+        window, boxes the bucket clips. Up to 256x128, the torch form on the
+        CPU and the algorithm written out in numpy too."""
+        from satellite_approximation_tpu_torch.models.detection import matching
+        from satellite_approximation_tpu_torch.ops import sweep_kernels
+
+        rasters, ids, pairs, static = sweep_case(*bucket, kind, seed=sum(bucket))
+        host = (*map(torch.from_numpy, rasters), torch.from_numpy(ids),
+                *(torch.from_numpy(pairs[k]) for k in _PAIR_OPERANDS))
+        card = tuple(a.to(cuda_device) for a in host)
+        before = K.launch_counts["similarity_sweep"]
+        t, c = sweep_kernels.pair_counts(*card, **static)
+        got = matching._bucket_sweep(*card, **static, min_support=5)
+        assert K.launch_counts["similarity_sweep"] == before + 2
+
+        nh, nc = pairs["min_x"].shape
+        rep = lambda a: a.reshape(nh * nc, *a.shape[2:])  # noqa: E731
+        cand, hit = matching._pair_counts(
+            *card[:3], card[3].repeat(nh), *map(rep, card[4:]), *static.values(), False)
+        assert_bitwise(t, cand.sum(dim=(1, 2), dtype=torch.int32).reshape(nh, nc))
+        assert_bitwise(c, hit.sum(dim=(1, 2), dtype=torch.int32).reshape(nh, nc))
+        del cand, hit
+        assert_bitwise(got, matching._sweep(*card, **static, min_support=5, separable=False))
+        if bucket[0] <= 256:
+            assert_bitwise(got.cpu(), matching._bucket_sweep(*host, **static, min_support=5))
+            want_t, want_c = true_box_counts(rasters, ids, pairs, **static)
+            assert np.array_equal(t.cpu().numpy(), want_t)
+            assert np.array_equal(c.cpu().numpy(), want_c)
+        assert int(t.max()) > 0 or kind in ("sparse", "absent")
+
+    def test_match_on_card_equals_native_scan_in_six_buckets(self, cuda_device):
+        """The matching on the card (one launch of kernel 11 a bucket, six
+        buckets from 16x16 to 256x256) against the C++ scan: solutions,
+        bounds, areas and the object-based shadow mask."""
+        from satellite_approximation_tpu_torch.config import MatchingConfig
+        from satellite_approximation_tpu_torch.models.detection import matching
+        from satellite_approximation_tpu_torch.utils.profiling import StageTimer
+
+        from satellite_approximation_tpu_torch.utils import profiling
+
+        args = _bucket_scene_inputs(8)
+        want = matching.match_clouds_shadows(*args, MatchingConfig(backend="native"))
+        timer = StageTimer(cuda_device)
+        before = K.launch_counts["similarity_sweep"]
+        profiling.clear()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            got = matching.match_clouds_shadows(*args, MatchingConfig(backend="torch"),
+                                                timer=timer, device=cuda_device)
+        spans = [r.counts for r in profiling.records() if r.name == "detect.matching/sweep"]
+        profiling.clear()
+        sweeps = [name for name, _ in timer.stages if name.startswith("matching/sweep ")]
+        assert len(sweeps) >= 6 and len(spans) == len(sweeps)
+        assert K.launch_counts["similarity_sweep"] == before + len(sweeps)
+        assert all(c["kernel"] == 1 for c in spans)
+        assert sum(c["pairs"] for c in spans) == len(matching.height_sweep(MatchingConfig())) * len(
+            args[0])
+        assert np.array_equal(got.shadow_mask, want.shadow_mask) and got.shadow_mask.any()
+        assert got.trimmed_mean_height == want.trimmed_mean_height
+        assert got.solutions.keys() == want.solutions.keys()
+        for k, w in want.solutions.items():
+            assert (got.solutions[k].height, got.solutions[k].similarity) == (w.height, w.similarity)
+            gs, ws = got.shadows[k], want.shadows[k]
+            assert (gs.bounds, gs.area, gs.anchor) == (ws.bounds, ws.area, ws.anchor)
+
+    def test_kernel_route_equals_the_torch_forms_passes(self, cuda_device):
+        """On the card, the kernel route (a bucket a pass through kernel 11)
+        against the torch form's groups and passes, given as the sweep."""
+        from satellite_approximation_tpu_torch.config import MatchingConfig
+        from satellite_approximation_tpu_torch.models.detection import matching
+
+        args = _bucket_scene_inputs(4)
+        got = matching.match_clouds_shadows(*args, MatchingConfig(backend="torch"),
+                                            device=cuda_device)
+
+        def torch_form(*a, **kw):
+            return matching._sweep(*a, **kw, separable=False)
+
+        before = K.launch_counts["similarity_sweep"]
+        want = matching.match_clouds_shadows(*args, MatchingConfig(backend="torch"),
+                                             sweep_fn=torch_form, device=cuda_device)
+        assert K.launch_counts["similarity_sweep"] == before
+        _assert_identical_match(got, want)
+
+    @pytest.mark.parametrize("backends", [("host", "native"), ("torch", "torch")],
+                             ids=["host-route", "all-device-route"])
+    def test_detect_launches_kernel_11_on_the_device_route(self, cuda_device, tmp_path,
+                                                           backends):
+        """``detect``'s device route sweeps with kernel 11 (a launch a
+        bucket); the host route takes the native scan and launches none."""
+        from torch_parity import mini_scene
+
+        n = 512
+        K.reset_launch_counts()
+        _detect(mini_scene(n), n, backends, cuda_device, tmp_path / "card")
+        launched = K.launch_counts["similarity_sweep"]
+        assert launched > 0 if backends[1] == "torch" else launched == 0
+
+
 # ------------------------------------------------------------ multi-device
 
 
@@ -863,6 +1003,25 @@ class TestShardedOnCard:
         assert masks["object_based_shadows"].any() and status == want_status
         for name, m in want.items():
             assert np.array_equal(masks[name], m), name
+
+    def test_sharded_sweep_equals_one_device(self, cuda_device, separate):
+        """The matching with ``sharded_sweep`` (kernel 11 on every shard, the
+        torch form's passes) against one device's one pass a bucket: every
+        result equal."""
+        from satellite_approximation_tpu_torch.config import MatchingConfig
+        from satellite_approximation_tpu_torch.models.detection import matching
+        from satellite_approximation_tpu_torch.parallel.detect import sharded_sweep
+        from satellite_approximation_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh((4,), ("d",), _shard_devices(cuda_device, 4, separate))
+        args = _bucket_scene_inputs(4)
+        want = matching.match_clouds_shadows(*args, MatchingConfig(backend="torch"),
+                                             device=cuda_device)
+        before = K.launch_counts["similarity_sweep"]
+        got = matching.match_clouds_shadows(*args, MatchingConfig(backend="torch"),
+                                            sweep_fn=sharded_sweep(mesh), device=cuda_device)
+        assert K.launch_counts["similarity_sweep"] >= before + 4
+        _assert_identical_match(got, want)
 
     def test_two_processes_bit_equal_to_one(self, cuda_device, tmp_path, separate):
         """The sharded MG-PCG on a (1,4) mesh of two processes of two shards,

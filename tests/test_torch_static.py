@@ -58,7 +58,7 @@ def test_detection_modules_are_covered():
     for rel in (
         "ops/masks.py", "ops/stats.py", "ops/image.py", "ops/blur.py", "ops/morphology.py",
         "ops/geometry.py", "ops/pitfill.py", "ops/pitfill_kernels.py", "ops/components.py",
-        "native/__init__.py",
+        "ops/sweep_kernels.py", "native/__init__.py",
         "utils/geotiff.py", "utils/tiffmb.py", "utils/types.py", "utils/profiling.py",
         "utils/errors.py", "utils/dates.py", "utils/filesystem.py", "utils/db.py", "utils/loader.py",
         "models/detection/cloud_mask.py", "models/detection/shadow_mask.py",

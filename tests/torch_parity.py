@@ -251,6 +251,116 @@ def match_scene(h=96, w=128, diag=10.0, n_clouds=3, seed=5, shift=(0, 14), borde
     return mask, psm, sun_pos, view_pos, diag
 
 
+def bucket_scene(scale: int = 1, seed: int = 3, shift=(-3, -5)):
+    """A matching scene whose clouds fall into six window buckets: six
+    rectangles of 3x5 to 40x60 pixels (rows x columns), sizes and places
+    times ``scale``, at 0.0625 km a pixel, with a potential-shadow field
+    displaced by ``shift`` pixels and speckle. Returns what
+    :func:`match_scene` returns."""
+    sizes = [(3, 5), (6, 12), (12, 5), (20, 28), (36, 14), (40, 60)]
+    places = [(20, 20), (20, 50), (20, 90), (20, 130), (80, 20), (80, 60)]
+    h, w = 160 * scale, 224 * scale
+    mask = np.zeros((h, w), dtype=bool)
+    for (rows, cols), (r0, c0) in zip(sizes, places):
+        mask[r0 * scale : (r0 + rows) * scale, c0 * scale : (c0 + cols) * scale] = True
+    r = np.random.default_rng(seed)
+    psm = np.roll(mask, (-shift[0], -shift[1]), axis=(0, 1))
+    psm |= r.random((h, w)) > 0.96
+    psm &= ~mask
+    sun_pos = np.array([2.0e8, 1.0e8, 1.5e9])
+    view_pos = np.array([0.05, 0.1, 785.0])
+    return mask, psm, sun_pos, view_pos, 0.0625 * float(np.hypot(h, w))
+
+
+# kernel 11's cases: the (wb, hb) buckets (the card tests take all, the CPU
+# tests the first three) and the kinds of pairs (see sweep_case)
+SWEEP_BUCKETS = [(8, 8), (16, 8), (64, 32), (256, 128), (1024, 512), (4096, 2048)]
+SWEEP_KINDS = ["separable", "sheared", "edges", "leaving", "sparse", "absent", "oversized"]
+
+
+def sweep_case(wb: int, hb: int, kind: str, seed: int = 0, nh: int = 3, nc: int = 4):
+    """The operands of one bucket's similarity sweep (``matching._bucket_sweep``),
+    as numpy: (rasters, ids, per-pair operands, static arguments).
+
+    Random rasters of about 1.5 buckets a side (at least 24), padded as
+    ``match_clouds_shadows`` pads them; the id map in 8x8 blocks of the
+    clouds' ids and -1. Pairs of ``nh`` heights and ``nc`` clouds, boxes of
+    half a bucket to a bucket, casts A x + d with A about the identity.
+    ``kind``: "separable" (A a multiple of the identity), "sheared" (the
+    cross terms 0.005-0.05), "edges" (boxes clipped at the left, right,
+    bottom and top edge of the raster), "leaving" (shifts of 0.6 rasters:
+    casts leave the raster, some by less than one pixel), "sparse" (99.5 %
+    cloud: most pairs under the minimum support), "absent" (a cloud whose id
+    is not in the id map), "oversized" (boxes up to 1.5 buckets, which the
+    bucket clips)."""
+    rng = np.random.default_rng(seed)
+    h, w = max(hb + hb // 2, 24), max(wb + wb // 2, 24)
+    ids = (3 * np.arange(1, nc + 1)).astype(np.int32)
+    coarse = rng.choice(np.r_[-1, ids], size=((h + 7) // 8, (w + 7) // 8))
+    id_map = np.repeat(np.repeat(coarse, 8, 0), 8, 1)[:h, :w].astype(np.int32)
+    cloud = rng.random((h, w)) < (0.995 if kind == "sparse" else 0.3)
+    shadow = rng.random((h, w)) < 0.5
+    if kind == "absent":
+        ids[-1] = 10**6
+    top = 3 if kind == "oversized" else 2
+    ext_x = rng.integers(wb // 2 + 1, top * wb // 2 + 1, (nh, nc))
+    ext_y = rng.integers(hb // 2 + 1, top * hb // 2 + 1, (nh, nc))
+    min_x, min_y = rng.integers(0, w, (nh, nc)), rng.integers(0, h, (nh, nc))
+    if kind == "edges":
+        min_x[:, 0::4] = 0
+        min_x[:, 1::4] = w - ext_x[:, 1::4] // 2
+        min_y[:, 2::4] = 0
+        min_y[:, 3::4] = h - ext_y[:, 3::4] // 2
+    max_x = np.minimum(min_x + ext_x - 1, w - 1)
+    max_y = np.minimum(min_y + ext_y - 1, h - 1)
+    scale = rng.uniform(0.97, 1.03, (nh, nc))
+    a2 = np.zeros((nh, nc, 2, 2))
+    a2[..., 0, 0] = a2[..., 1, 1] = scale
+    if kind == "sheared":
+        a2[..., 0, 1] = rng.choice([-1, 1], (nh, nc)) * rng.uniform(0.005, 0.05, (nh, nc))
+        a2[..., 1, 0] = rng.choice([-1, 1], (nh, nc)) * rng.uniform(0.005, 0.05, (nh, nc))
+    delta = rng.uniform(-12.0, 12.0, (nh, nc, 2))
+    if kind == "leaving":
+        delta[..., 0] -= 0.6 * w * (np.arange(nc) % 2 == 0)
+        delta[..., 1] += 0.6 * h * (np.arange(nc) % 2 == 1)
+    pf = max(wb, hb)
+    pad = ((pf, hb), (pf, wb))
+    rasters = (np.pad(cloud, pad), np.pad(shadow, pad),
+               np.pad(id_map, pad, constant_values=-2))
+    pairs = dict(min_x=min_x.astype(np.int32), min_y=min_y.astype(np.int32),
+                 max_x=max_x.astype(np.int32), max_y=max_y.astype(np.int32),
+                 a2=a2.astype(np.float32), delta=delta.astype(np.float32))
+    return rasters, ids, pairs, dict(wb=wb, hb=hb, width=w, height=h, pf=pf)
+
+
+def true_box_counts(rasters, ids, pairs, wb, hb, width, height, pf):
+    """(t, c), int32 (Nh, Nc): kernel 11's algorithm in numpy, pair by pair
+    over its box clipped to the bucket, the cast position rounded op by op
+    in f32 and truncated toward zero."""
+    cloud, shadow, id_map = rasters
+    nh, nc = pairs["min_x"].shape
+    t = np.zeros((nh, nc), np.int32)
+    c = np.zeros((nh, nc), np.int32)
+    for i in range(nh):
+        for j in range(nc):
+            x0, y0 = int(pairs["min_x"][i, j]), int(pairs["min_y"][i, j])
+            x1 = min(int(pairs["max_x"][i, j]), x0 + wb - 1)
+            y1 = min(int(pairs["max_y"][i, j]), y0 + hb - 1)
+            fx = np.arange(x0, x1 + 1, dtype=np.float32)[None, :]
+            fy = np.arange(y0, y1 + 1, dtype=np.float32)[:, None]
+            (a00, a01), (a10, a11) = pairs["a2"][i, j]
+            d0, d1 = pairs["delta"][i, j]
+            qi = ((a00 * fx + a01 * fy) + d0).astype(np.int32)
+            qj = ((a10 * fx + a11 * fy) + d1).astype(np.int32)
+            valid = (qi >= 0) & (qi < width) & (qj >= 0) & (qj < height)
+            win = (slice(y0 + pf, y1 + 1 + pf), slice(x0 + pf, x1 + 1 + pf))
+            src = id_map[np.clip(qj, 0, height - 1) + pf, np.clip(qi, 0, width - 1) + pf]
+            cand = ~cloud[win] & valid & (src == ids[j])
+            t[i, j] = cand.sum()
+            c[i, j] = (cand & shadow[win]).sum()
+    return t, c
+
+
 def mini_scene(n: int, seed: int = 7):
     """Tiny synthetic Sentinel-2-style scene (clouds, displaced NIR shadows,
     smooth angle rasters) — the ``_mini_scene`` of the JAX package's
