@@ -47,6 +47,7 @@ from ...ops.stats import trimmed_average
 from . import placement
 from .cloud_mask import CloudObject
 
+# bucket sides; a window wider than the last takes the next power of two
 _BUCKETS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
 # window cells per cloud group of one bucket, and per batched pass of the
 # torch form over a group's (height, cloud) pairs: they bound the live
@@ -362,10 +363,15 @@ def _sep_metadata(a2, delta, min_x, min_y, wb: int, hb: int):
 
 
 def _bucket_size(n: int) -> int:
+    """The side of the bucket that holds a window side of ``n``: the
+    smallest of ``_BUCKETS`` that does, past the largest the next power of
+    two. (The JAX package stops at the largest and scans wider windows on
+    its native backend; every sweep here holds any window: ``in_win``
+    masks the torch form to the true box, kernel 11 walks only that.)"""
     for b in _BUCKETS:
         if n <= b:
             return b
-    return _BUCKETS[-1]
+    return 1 << (int(n) - 1).bit_length()
 
 
 def _whole_bucket(dev: torch.device) -> bool:
@@ -458,8 +464,10 @@ def match_clouds_shadows(
 
     Each bucket's sweep is a stage ``matching/sweep`` with the counts
     ``pairs`` ((height, cloud) pairs swept), ``cells`` (the cells of their
-    true boxes) and ``kernel`` (1 where kernel 11 swept them, on a CUDA
-    device, 0 for the torch form).
+    true boxes), ``kernel`` (1 where kernel 11 swept them, on a CUDA
+    device, 0 for the torch form) and ``oversized`` (the clouds whose
+    window passes ``_BUCKETS[-1]``, which the JAX package scans on its
+    native backend instead).
     """
     if timer is None:
         from ...utils.profiling import StageTimer
@@ -499,62 +507,30 @@ def match_clouds_shadows(
                 a2, delta, mnx, mxx, mny, mxy, m_all,
                 heights, solutions, shadows, shadow_mask_flipped,
             )
-    elif clouds:
-        # windows wider than the largest bucket would be silently truncated
-        # by the padded device sweep (in_win never reaches past the bucket);
-        # such giant-cloud windows are rare — scan them exactly on the
-        # native backend (exact per-height bboxes, no padding)
-        ext_x_all = (mxx - mnx + 1).max(axis=1)
-        ext_y_all = (mxy - mny + 1).max(axis=1)
-        oversized = (ext_x_all > _BUCKETS[-1]) | (ext_y_all > _BUCKETS[-1])
-        if oversized.any():
-            over = [k for k in range(len(clouds)) if oversized[k]]
-            if not native.available():
-                raise RuntimeError(
-                    f"{len(over)} cloud window(s) exceed the {_BUCKETS[-1]}px device "
-                    "bucket cap and the native library, which scans such windows "
-                    "exactly, is unavailable; the sweep would truncate them"
-                )
-            timer.routes["matching"] += (
-                f", {len(over)} cloud(s) with oversized windows on the host native scan")
-            with timer.stage("matching/native scan (oversized windows)"):
-                _match_native(
-                    [clouds[k] for k in over], cloud_map, cloud_mask,
-                    potential_shadow, config,
-                    a2[over], delta[over], mnx[over], mxx[over],
-                    mny[over], mxy[over], m_all[over],
-                    heights, solutions, shadows, shadow_mask_flipped,
-                )
-            keep = [k for k in range(len(clouds)) if not oversized[k]]
-            clouds = [clouds[k] for k in keep]
-            a2, delta, m_all = a2[keep], delta[keep], m_all[keep]
-            mnx, mxx = mnx[keep], mxx[keep]
-            mny, mxy = mny[keep], mxy[keep]
-
     if clouds and not use_native:
         dev = sweep_device()
         # flipped (bottom-origin-row) rasters, padded so that no window
         # leaves them — flip and pad on the device: host inputs upload their
         # raw bytes once, tensors already there never leave
-        ext_x = (mxx - mnx + 1).max(axis=1)  # (Nc,)
-        ext_y = (mxy - mny + 1).max(axis=1)
-        base_w = int(min(_bucket_size(int(ext_x.max())), _BUCKETS[-1]))
-        base_h = int(min(_bucket_size(int(ext_y.max())), _BUCKETS[-1]))
-        # back pads: windows anchored at wdt-1 / hgt-1 reach one bucket
-        # further; the front pad keeps the layout a sharded sweep expects
-        pf = max(base_w, base_h)
+        wb_k = np.array([_bucket_size(int(n)) for n in (mxx - mnx + 1).max(axis=1)])
+        hb_k = np.array([_bucket_size(int(n)) for n in (mxy - mny + 1).max(axis=1)])
+        buckets: dict[tuple[int, int], list[int]] = {}
+        for k, key in enumerate(zip(wb_k.tolist(), hb_k.tolist())):
+            buckets.setdefault(key, []).append(k)
+
+        # anchors lie inside the raster (see _cast_transforms), so nothing
+        # is read in front of it; behind it, the torch form and the detail
+        # pass read each window whole: pad by the furthest reach of any
+        # window past the raster, not by a whole bucket
+        back_w = max(0, int((mnx.max(axis=1) + wb_k).max()) - wdt)
+        back_h = max(0, int((mny.max(axis=1) + hb_k).max()) - hgt)
 
         def padded(t, value):
-            return F.pad(torch.flipud(t), (pf, base_w, pf, base_h), value=value).contiguous()
+            return F.pad(torch.flipud(t), (0, back_w, 0, back_h), value=value).contiguous()
 
         cmask_t = padded(push_mask(cloud_mask, dev), False)
         psm_t = padded(push_mask(potential_shadow, dev), False)
         cmap_t = padded(as_tensor(cloud_map, dev, torch.int32), -2)
-
-        buckets: dict[tuple[int, int], list[int]] = {}
-        for k in range(len(clouds)):
-            key = (_bucket_size(int(ext_x[k])), _bucket_size(int(ext_y[k])))
-            buckets.setdefault(key, []).append(k)
 
         nh = len(heights)
         # where kernel 11 sweeps (CUDA, no sweep_fn) a bucket goes in one
@@ -562,7 +538,7 @@ def match_clouds_shadows(
         # groups bound its window-sized intermediates
         whole_bucket = sweep_fn is None and _whole_bucket(dev)
         sweep = sweep_fn or _bucket_sweep
-        raster_kw = dict(width=wdt, height=hgt, pf=pf)
+        raster_kw = dict(width=wdt, height=hgt, pf=0)
 
         def ids_of(sel):
             return torch.tensor([clouds[k].id for k in sel], dtype=torch.int32, device=dev)
@@ -600,7 +576,8 @@ def match_clouds_shadows(
             box_h = np.minimum(mxy[sel], mny[sel] + hb - 1) - mny[sel] + 1
             with timer.stage(f"matching/sweep {wb}x{hb} n={len(sel)}", "matching/sweep",
                              wb=wb, hb=hb, n=len(sel), pairs=nh * len(sel),
-                             cells=int((box_w * box_h).sum()), kernel=int(dev.type == "cuda")):
+                             cells=int((box_w * box_h).sum()), kernel=int(dev.type == "cuda"),
+                             oversized=len(sel) if max(wb, hb) > _BUCKETS[-1] else 0):
                 parts = [one_pass(g0) for g0 in range(0, nh, ch)]
                 return torch.cat(parts, dim=0).cpu().numpy()
 

@@ -233,6 +233,8 @@ def _beta_prep(
             )
         )
 
+    # a shadow's influence window (its box grown by the influence radius on
+    # each side) can pass the largest of _BUCKETS, as on a 10 m tile
     max_b = _bucket_size(max((max(it["extent"]) for it in items), default=8))
     buckets: dict[tuple[int, int], list[dict]] = {}
     for it in items:
@@ -247,7 +249,7 @@ def _bucket_band(members: list[dict]) -> int:
     (see _edt_sq) — with the default config this is 128 vs bucket widths up
     to 4096."""
     need = int(np.ceil(max(it["inf"] for it in members))) + 1
-    return max(_bucket_size(need), need)  # never under-band (exactness)
+    return _bucket_size(need)  # never under-band (exactness)
 
 
 def _bucket_operands(members: list[dict], hb: int, wb: int, device):

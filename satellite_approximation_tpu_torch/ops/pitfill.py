@@ -290,12 +290,15 @@ def _maxpool2(x: torch.Tensor) -> torch.Tensor:
     )
 
 
-def _level_counts(orig_l: torch.Tensor, rounds: list, cycles: list) -> dict:
+def _level_counts(orig_l: torch.Tensor, rounds: list, cycles: list, launches: int) -> dict:
     """What one pyramid level did: its cells, the directional cycles it ran
-    (kernel 9's work), its sweeps and the cells they swept."""
+    and kernel 9's launches for them (a budget queues all its cycles, so a
+    budget that ends early launches more passes than it runs), its sweeps
+    and the cells they swept."""
     return {
         "cells": orig_l.numel(),
         "cycles": sum(cycles),
+        "launches": launches,
         "sweeps": sum(n for _, n in rounds),
         "cells_swept": sum(cells * n for cells, n in rounds),
     }
@@ -323,7 +326,7 @@ def pit_fill(original: torch.Tensor, border_value, on_level=None) -> torch.Tenso
     the level's (cells swept a sweep, sweeps) entries and the number of
     directional cycles it ran: what a profile reads. It changes nothing of
     the schedule. Each level is a span ``pitfill.level`` whose counts are
-    the same numbers (``_level_counts``)."""
+    the same numbers and kernel 9's launches (``_level_counts``)."""
     original = original.to(torch.float32).contiguous()
     border_value = torch.as_tensor(border_value, dtype=torch.float32, device=original.device)
 
@@ -340,6 +343,7 @@ def pit_fill(original: torch.Tensor, border_value, on_level=None) -> torch.Tenso
         # on F*
         rounds, cycles = [], []
         with profiling.span("pitfill.level", level=lvl):
+            launched = pitfill_kernels.launches()
             f = torch.maximum(orig_l, f)
             if run_cycles and orig_l.numel() >= _DIRECTIONAL_MIN_SIZE:
                 changed = True
@@ -347,7 +351,7 @@ def pit_fill(original: torch.Tensor, border_value, on_level=None) -> torch.Tenso
                     f, changed = pitfill_kernels.directional_budget(
                         orig_l, border_value, f, _DIRECTIONAL_BUDGET, cycles)
             f = _fixpoint(orig_l, border_value, f, rounds)
-            done = _level_counts(orig_l, rounds, cycles)
+            done = _level_counts(orig_l, rounds, cycles, pitfill_kernels.launches() - launched)
             for name, n in done.items():
                 profiling.count(name, n)
         if on_level is not None:

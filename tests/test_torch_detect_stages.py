@@ -218,8 +218,13 @@ class TestMatching:
         assert np.array_equal(t_match.height_sweep(t_config.MatchingConfig()),
                               j_match.height_sweep(j_config.MatchingConfig()))
         assert t_match._BUCKETS == j_match._BUCKETS
-        assert [t_match._bucket_size(n) for n in (1, 8, 9, 700, 5000)] == [
-            j_match._bucket_size(n) for n in (1, 8, 9, 700, 5000)]
+        assert [t_match._bucket_size(n) for n in (1, 8, 9, 700, 4096)] == [
+            j_match._bucket_size(n) for n in (1, 8, 9, 700, 4096)]
+        # past the largest the JAX package stops (and scans such windows on
+        # its native backend); the port's sweeps take the next power of two
+        assert j_match._bucket_size(5000) == 4096
+        assert [t_match._bucket_size(n) for n in (4097, 5000, 8192, 10980)] == [
+            8192, 8192, 8192, 16384]
 
     def test_cast_transforms(self, jax_stages):
         heights = np.array([0.5, 2.0, 7.5])
@@ -387,23 +392,22 @@ class TestMatching:
 
     @pytest.mark.parametrize("native_route", NATIVE_ROUTES, indirect=True)
     def test_oversized_window(self, jax_stages, native_route, monkeypatch):
-        """A cloud wider than the largest bucket leaves the sweep: the native
-        scan takes it exactly and the route says so; without the library the
-        call raises, it never truncates the window."""
+        """A cloud wider than the largest bucket stays in the sweep, in a
+        bucket of the next power of two, and is never truncated: the JAX
+        package's results (which scans such windows natively), with or
+        without the library, and no native scan in the route."""
         s = jax_stages
         monkeypatch.setattr(t_match, "_BUCKETS", (8, 16))
         args = (clouds_to_port(s["clouds"]), s["cloud_map"], s["gen"].cloud_mask_no_processing,
                 s["psm"].mask, DIAG, s["sun"], s["view"], t_config.MatchingConfig(backend="torch"))
         timer = StageTimer()
-        if native.available():
-            got = t_match.match_clouds_shadows(*args, timer=timer, device="cpu")
-            assert_same_match(got, s["match"])
-            assert timer.routes["matching"].startswith("device sweep (cpu), ")
-            assert "oversized windows on the host native scan" in timer.routes["matching"]
-            assert any(name.startswith("matching/native scan (oversized") for name, _ in timer.stages)
-        else:
-            with pytest.raises(RuntimeError, match="bucket cap"):
-                t_match.match_clouds_shadows(*args, timer=timer, device="cpu")
+        got = t_match.match_clouds_shadows(*args, timer=timer, device="cpu")
+        assert_same_match(got, s["match"])
+        assert timer.routes["matching"] == "device sweep (cpu)"
+        names = [name for name, _ in timer.stages]
+        assert not any(n.startswith("matching/native scan") for n in names)
+        assert any(int(n.split()[1].split("x")[0]) > 16 for n in names
+                   if n.startswith("matching/sweep "))
 
 
 def assert_identical_match(got, want):
@@ -490,35 +494,35 @@ class TestWholeBucketSweep:
 
     @pytest.mark.parametrize("native_route", NATIVE_ROUTES, indirect=True)
     def test_oversized_windows_keep_their_route(self, native_route, monkeypatch):
-        """Clouds wider than the largest bucket still take the native scan
-        on the one-pass route, and the rest are swept a bucket a pass: the
-        results of the groups and passes."""
-        monkeypatch.setattr(t_match, "_BUCKETS", (8, 16))
+        """Clouds wider than the largest bucket keep the sweep's route on the
+        one-pass route (kernel 11's) and on the groups and passes (the torch
+        form's), in buckets of the next power of two, with or without the
+        library: both identical to the sweep with the default buckets, where
+        no window passes the largest."""
         args = (*_match_inputs("bucket_scene", None), t_config.MatchingConfig(backend="torch"))
-        if not native.available():
-            monkeypatch.setattr(t_match, "_whole_bucket", lambda dev: True)
-            with pytest.raises(RuntimeError, match="bucket cap"):
-                t_match.match_clouds_shadows(*args, device="cpu")
-            return
         want = t_match.match_clouds_shadows(*args, device="cpu")
-        monkeypatch.setattr(t_match, "_whole_bucket", lambda dev: True)
-        timer = StageTimer()
-        got = t_match.match_clouds_shadows(*args, timer=timer, device="cpu")
-        assert_identical_match(got, want)
-        assert "3 cloud(s) with oversized windows on the host native scan" in timer.routes["matching"]
-        names = [name for name, _ in timer.stages]
-        assert any(n.startswith("matching/native scan (oversized") for n in names)
-        assert sorted(n for n in names if n.startswith("matching/sweep ")) == [
-            "matching/sweep 16x8 n=1", "matching/sweep 8x16 n=1", "matching/sweep 8x8 n=1"]
+        monkeypatch.setattr(t_match, "_BUCKETS", (8, 16))
+        for whole in (False, True):
+            monkeypatch.setattr(t_match, "_whole_bucket", lambda dev, whole=whole: whole)
+            timer = StageTimer()
+            got = t_match.match_clouds_shadows(*args, timer=timer, device="cpu")
+            assert_identical_match(got, want)
+            assert timer.routes["matching"] == "device sweep (cpu)"
+            names = [name for name, _ in timer.stages]
+            assert not any(n.startswith("matching/native scan") for n in names)
+            sweeps = sorted(n for n in names if n.startswith("matching/sweep "))
+            assert len(sweeps) == 6 and sum(int(n.rsplit("=", 1)[1]) for n in sweeps) == 6
+            assert {"matching/sweep 16x8 n=1", "matching/sweep 8x16 n=1",
+                    "matching/sweep 8x8 n=1"} < set(sweeps)
 
     @pytest.mark.parametrize("whole", [False, True], ids=["passes", "one-pass"])
     @pytest.mark.parametrize("scene", ["mini_scene", "bucket_scene"])
     def test_sweep_spans_count_pairs_cells_and_kernel(self, jax_stages, scene, whole,
                                                       monkeypatch):
         """Each bucket's sweep span records the pairs it swept, the cells of
-        their true boxes and whether kernel 11 ran (0 for the torch form):
-        summed a call, every (height, cloud) pair and every box cell once,
-        on either route."""
+        their true boxes, whether kernel 11 ran (0 for the torch form) and
+        the clouds past the largest bucket (none here): summed a call, every
+        (height, cloud) pair and every box cell once, on either route."""
         inputs = _match_inputs(scene, jax_stages)
         config = t_config.MatchingConfig(backend="torch")
         monkeypatch.setattr(t_match, "_whole_bucket", lambda dev: whole)
@@ -530,6 +534,7 @@ class TestWholeBucketSweep:
         profiling.clear()
         buckets, cells, nh = _buckets(inputs, config)
         assert spans and all(r.counts["kernel"] == 0 for r in spans)
+        assert all(r.counts["oversized"] == 0 for r in spans)
         assert sum(r.counts["pairs"] for r in spans) == nh * len(inputs[0])
         assert sum(r.counts["cells"] for r in spans) == cells
         if whole:

@@ -43,6 +43,7 @@ from torch_parity import (  # noqa: F401 — cuda_device is a fixture
     make_mask,
     random_mask,
     shifted,
+    strip_scene,
     sweep_case,
     true_box_counts,
     v2_window_case,
@@ -823,7 +824,8 @@ class TestSimilaritySweepOnCard:
     @pytest.mark.parametrize("bucket", SWEEP_BUCKETS, ids=lambda b: f"{b[0]}x{b[1]}")
     def test_kernel_11_bitwise(self, cuda_device, bucket, kind):
         """Kernel 11's counts and similarities against the torch form on the
-        card, bit for bit, from 8x8 to 4096x2048 buckets: separable and
+        card, bit for bit, from 8x8 buckets to 4096x2048 and 8192x64 (past
+        the largest of the matching's buckets): separable and
         sheared casts, boxes clipped at each raster edge, casts that leave
         the raster, pairs under the minimum support, an id absent from its
         window, boxes the bucket clips. Up to 256x128, the torch form on the
@@ -907,6 +909,41 @@ class TestSimilaritySweepOnCard:
                                              sweep_fn=torch_form, device=cuda_device)
         assert K.launch_counts["similarity_sweep"] == before
         _assert_identical_match(got, want)
+
+    @pytest.mark.parametrize("length", [4200, 3000])
+    def test_kernel_route_past_the_largest_bucket(self, cuda_device, length):
+        """A strip cloud of 4200 px casts windows wider than the largest of
+        ``_BUCKETS`` (4096): on the card its 8192 px bucket goes through
+        kernel 11 and the detail pass, bit-equal to the torch form's passes
+        on the card, and with the C++ scan's solutions and shadow mask. A
+        strip of 3000 px stays in a 4096 px bucket."""
+        from satellite_approximation_tpu_torch.config import MatchingConfig
+        from satellite_approximation_tpu_torch.models.detection import cloud_mask, matching
+        from satellite_approximation_tpu_torch.utils.profiling import StageTimer
+
+        mask, psm, sun, view, diag = strip_scene(length)
+        cmap, clouds = cloud_mask.partition_cloud_mask(mask, diag, 3)
+        args = (clouds, cmap, mask, psm, diag, sun, view)
+        timer = StageTimer(cuda_device)
+        before = K.launch_counts["similarity_sweep"]
+        got = matching.match_clouds_shadows(*args, MatchingConfig(backend="torch"),
+                                            timer=timer, device=cuda_device)
+        assert K.launch_counts["similarity_sweep"] == before + 1
+        wb = 8192 if length > 4096 else 4096
+        assert [n for n, _ in timer.stages if n.startswith("matching/sweep ")] == [
+            f"matching/sweep {wb}x8 n=1"]
+
+        def torch_form(*a, **kw):
+            return matching._sweep(*a, **kw, separable=False)
+
+        want = matching.match_clouds_shadows(*args, MatchingConfig(backend="torch"),
+                                             sweep_fn=torch_form, device=cuda_device)
+        _assert_identical_match(got, want)
+        scan = matching.match_clouds_shadows(*args, MatchingConfig(backend="native"))
+        assert np.array_equal(got.shadow_mask, scan.shadow_mask) and got.shadow_mask.any()
+        for k, w in scan.solutions.items():
+            assert (got.solutions[k].height, got.solutions[k].similarity) == (w.height, w.similarity)
+            assert got.shadows[k].bounds == scan.shadows[k].bounds
 
     @pytest.mark.parametrize("backends", [("host", "native"), ("torch", "torch")],
                              ids=["host-route", "all-device-route"])

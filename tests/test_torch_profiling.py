@@ -193,6 +193,50 @@ def test_pit_fill_records_each_level():
         assert rec.parent == "detect.call"
 
 
+@pytest.mark.parametrize("cycles_on_cpu", [False, True])
+def test_pit_fill_levels_count_no_launches_on_the_cpu(monkeypatch, cycles_on_cpu):
+    """Every ``pitfill.level`` records ``launches``, kernel 9's launches in
+    that level: 0 on the CPU, also where the plain version runs the cycles."""
+    monkeypatch.setattr(pitfill, "_DIRECTIONAL_ON_CPU", cycles_on_cpu)
+    x = torch.rand(150, 140, generator=torch.Generator().manual_seed(15)) * 0.9
+    with traced():
+        with profiling.call("detect"):
+            pitfill.pit_fill(x, 0.45)
+    levels = by_name("pitfill.level")
+    assert [r.counts["launches"] for r in levels] == [0, 0, 0]
+    assert (sum(r.counts["cycles"] for r in levels) > 0) == cycles_on_cpu
+
+
+def test_pit_fill_level_launches_are_its_own(monkeypatch):
+    """``launches`` is the change of kernel 9's launch count inside the
+    level: a budget that launches its 8 cycles x 4 passes (as the card's
+    does, whatever cycle it ends on) counts on the level that ran it, and a
+    level without cycles counts none."""
+    from satellite_approximation_tpu_torch.ops import pitfill_kernels
+    from satellite_approximation_tpu_torch.ops import stencil_kernels as K
+
+    budgets = []
+
+    def launching(orig, border, f0, max_cycles, cycles=None):
+        budgets.append(orig.shape)
+        K.launch_counts[pitfill_kernels.NAME] += 4 * max_cycles
+        return pitfill._directional_budget(orig, border, f0, max_cycles, cycles)
+
+    monkeypatch.setattr(pitfill, "_DIRECTIONAL_ON_CPU", True)
+    monkeypatch.setattr(pitfill_kernels, "directional_budget", launching)
+    monkeypatch.setitem(K.launch_counts, pitfill_kernels.NAME, 5)
+    x = torch.rand(300, 280, generator=torch.Generator().manual_seed(16)) * 0.9
+    with traced():
+        with profiling.call("detect"):
+            pitfill.pit_fill(x, 0.45)
+    levels = by_name("pitfill.level")
+    assert [r.counts["cells"] for r in levels] == [38 * 35, 75 * 70, 150 * 140, 300 * 280]
+    want = [4 * pitfill._DIRECTIONAL_BUDGET * budgets.count((h, w))
+            for h, w in ((38, 35), (75, 70), (150, 140), (300, 280))]
+    assert [r.counts["launches"] for r in levels] == want
+    assert want[:2] == [0, 0] and all(want[2:])
+
+
 def test_stage_timer_stages_are_spans():
     timer = profiling.StageTimer("cpu")
     with traced():

@@ -272,9 +272,27 @@ def bucket_scene(scale: int = 1, seed: int = 3, shift=(-3, -5)):
     return mask, psm, sun_pos, view_pos, 0.0625 * float(np.hypot(h, w))
 
 
+def strip_scene(length: int):
+    """A 40 x 4400 matching scene at 10 m a pixel with one cloud, a row of
+    ``length`` pixels, and its shadow: the strip moved 3 rows down and 6
+    columns left (where it falls from about 0.45 km under the sun of
+    :func:`match_scene`), with speckle. A strip of more than 4096 px casts
+    windows wider than the largest of ``matching._BUCKETS``. Returns what
+    :func:`match_scene` returns."""
+    h, w = 40, 4400
+    mask = np.zeros((h, w), dtype=bool)
+    mask[12, 100 : 100 + length] = True
+    psm = np.roll(mask, (3, -6), axis=(0, 1))
+    psm |= np.random.default_rng(3).random((h, w)) > 0.97
+    psm &= ~mask
+    sun_pos = np.array([2.0e8, 1.0e8, 1.5e9])
+    view_pos = np.array([0.05, 0.1, 785.0])
+    return mask, psm, sun_pos, view_pos, 0.010 * float(np.hypot(h, w))
+
 # kernel 11's cases: the (wb, hb) buckets (the card tests take all, the CPU
-# tests the first three) and the kinds of pairs (see sweep_case)
-SWEEP_BUCKETS = [(8, 8), (16, 8), (64, 32), (256, 128), (1024, 512), (4096, 2048)]
+# tests the first three; 8192 is past the largest of matching._BUCKETS) and
+# the kinds of pairs (see sweep_case)
+SWEEP_BUCKETS = [(8, 8), (16, 8), (64, 32), (256, 128), (1024, 512), (4096, 2048), (8192, 64)]
 SWEEP_KINDS = ["separable", "sheared", "edges", "leaving", "sparse", "absent", "oversized"]
 
 
