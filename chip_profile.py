@@ -12,6 +12,7 @@ minus the device time over that wall time.
     python3 chip_profile.py [--top N]
     python3 chip_profile.py --detect [N] [--top N]
     python3 chip_profile.py --multi-device [--top N]
+    python3 chip_profile.py --mask-write
 
 ``--detect`` profiles the detection path instead (kernel 9, the pit fill's
 directional pass, is its one hand-written kernel), at N x N (4096 by
@@ -35,6 +36,15 @@ solve, the host hierarchy, the uploads, the PCG loop, the replicated tail,
 the f64 residuals); the rest of the wall is the host assembly around the
 solve.
 
+``--mask-write`` times ``detect``'s mask writes on the benchmark's scenes
+(``portbench/traffic/scenes.py`` at 25 % cover, 5490^2 and 10980^2): two
+``detect`` calls a size with their write stages, then the final shadow
+mask's write in its parts as one strip (the fetch, the u8 copy, the copy to
+bytes, one ``zlib.compress``, the file write) and zlib's rate on each mask;
+then the whole write through ``utils/tiffmb.py`` as one strip and in row
+strips of each of ``STRIP_SIZES`` on the strip pool, in ``MASK_ROUNDS``
+turns, on the scenes of ``MASK_SEED``.
+
 The last line is one JSON object ``{"profile": {...}}``. Without a CUDA
 device the script prints no result and exits non-zero.
 """
@@ -43,6 +53,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import sys
 import time
@@ -263,6 +274,129 @@ def profile_detect(torch, dev, card, top, n):
     return out
 
 
+# the strip sizes tried in turns (bytes of a strip before deflate)
+STRIP_SIZES = (512 << 10, 1 << 20, 2 << 20, 4 << 20)
+MASKS = ("cloud_mask", "potential_shadows", "object_based_shadows", "shadow_mask")
+# (side, diagonal km): the 20 m and 10 m tiles of the detect cells
+MASK_SCENES = ((5490, 155.28), (10980, 155.28))
+MASK_SEED = 2**31 + 11  # a seed past 32 signed bits, as the benchmark's are
+MASK_ROUNDS = 5  # the turns of the whole write
+
+
+def seconds(fn, runs):
+    """Median wall seconds of ``runs`` calls of ``fn``."""
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def mask_write(torch, dev, card, sizes=MASK_SCENES):
+    """The mask writes of two ``detect`` calls a size, the final mask's
+    write in its parts, and the write as one strip and in row strips of
+    each of ``STRIP_SIZES``, in turns (seconds)."""
+    import contextlib
+    import tempfile
+    import zlib
+    from pathlib import Path
+
+    import numpy as np
+    from PIL import Image
+    from torch.profiler import ProfilerActivity, profile
+
+    from portbench.traffic import scenes
+    from satellite_approximation_tpu_torch.models.detection import pipeline
+    from satellite_approximation_tpu_torch.ops.masks import fetch_mask
+    from satellite_approximation_tpu_torch.utils import profiling, tiffmb
+    from satellite_approximation_tpu_torch.utils.profiling import StageTimer
+
+    out = {"cpus": len(os.sched_getaffinity(0)), "pool_width": tiffmb._get_pool()[1],
+           "seed": MASK_SEED, "rounds": MASK_ROUNDS}
+    one_strip, strip_bytes = tiffmb.ONE_STRIP_BYTES, tiffmb.STRIP_BYTES
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    with tempfile.TemporaryDirectory() as tmp:
+        for n, diagonal in sizes:
+            work = Path(tmp) / f"scene{n}"
+            work.mkdir()
+            template = work / "B08.tif"
+            Image.fromarray(np.zeros((1, 1), np.uint16)).save(template, format="TIFF")
+            scene = scenes.detect_scene(n, n, 0.25, scenes.generator(MASK_SEED, dev), dev)
+            calls = []
+            for traced in (False, True):  # a cold call, then a warm one with its spans
+                timer = StageTimer(dev)
+                profiling.clear()
+                with (profile(activities=[ProfilerActivity.CPU]) if traced
+                      else contextlib.nullcontext()):
+                    t0 = time.perf_counter()
+                    pipeline.detect(pipeline.CloudParams.from_root(work), diagonal,
+                                    use_cache=False, inputs=scene, timer=timer, device=dev)
+                    wall = time.perf_counter() - t0
+                writes = [(name, t) for name, t in timer.stages if name.startswith("write")]
+                spans = [(r.name, r.counts) for r in profiling.records()
+                         if r.name.startswith("detect.write")]
+                calls.append({"wall": wall, "writes": writes, "spans": spans})
+            masks = {}
+            for m in MASKS:
+                with Image.open(work / f"{m}.tif") as im:
+                    masks[m] = np.array(im).astype(bool)
+            final = torch.from_numpy(masks["shadow_mask"]).to(dev)
+            sync()
+            host = fetch_mask(final)
+            u8 = host.astype(np.uint8)
+            raw = u8.tobytes()
+            packed = zlib.compress(raw)
+            parts = {
+                "fetch": seconds(lambda: fetch_mask(final), 5),
+                "astype_u8": seconds(lambda: host.astype(np.uint8), 5),
+                "tobytes": seconds(lambda: u8.tobytes(), 5),
+                "deflate": seconds(lambda: zlib.compress(raw), 3),
+                "file_write": seconds(lambda: (work / "final.bin").write_bytes(packed), 3),
+            }
+            rates = {}
+            for m, mask in masks.items():
+                data = mask.view(np.uint8)
+                t0 = time.perf_counter()
+                size = len(zlib.compress(data))
+                dt = time.perf_counter() - t0
+                rates[m] = {"cover": float(mask.mean()), "deflate_s": dt,
+                            "mb_s": data.nbytes / dt / 1e6, "ratio": data.nbytes / size}
+            # the whole write in turns: one strip, then each strip size
+            kinds = ["one strip"] + [f"{b >> 10} KiB" for b in STRIP_SIZES]
+            times = {k: [] for k in kinds}
+            file_bytes = {}
+            path = work / "write.tif"
+            for _ in range(MASK_ROUNDS):
+                for k, b in zip(kinds, (None,) + STRIP_SIZES):
+                    tiffmb.ONE_STRIP_BYTES = one_strip if b else 1 << 62
+                    tiffmb.STRIP_BYTES = b or strip_bytes
+                    try:
+                        sync()
+                        t0 = time.perf_counter()
+                        pipeline._write_mask(final, path, template)
+                        times[k].append(time.perf_counter() - t0)
+                    finally:
+                        tiffmb.ONE_STRIP_BYTES, tiffmb.STRIP_BYTES = one_strip, strip_bytes
+                    file_bytes[k] = path.stat().st_size
+                    with Image.open(path) as im:
+                        if not np.array_equal(np.array(im).astype(bool), masks["shadow_mask"]):
+                            raise AssertionError(f"{n}^2 {k}: the mask read back differs")
+            writes = {k: {"median": statistics.median(v), "min": min(v), "max": max(v),
+                          "file_bytes": file_bytes[k]} for k, v in times.items()}
+            out[f"{n}"] = {"calls": calls, "final_mask_parts": parts,
+                           "final_mask_raw_bytes": len(raw), "final_mask_deflated_bytes": len(packed),
+                           "zlib": rates, "writes": writes}
+            cs.log(f"[mask-write] {n}^2 calls {calls}")
+            cs.log(f"[mask-write] {n}^2 final mask parts {parts}, {len(raw)} -> {len(packed)} B")
+            cs.log(f"[mask-write] {n}^2 zlib {rates}")
+            cs.log(f"[mask-write] {n}^2 writes {writes} [{card}]")
+            del final, scene, masks
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    return out
+
+
 def profile_multi_device(torch, dev, card, top):
     """A warm ``sharded_fill`` of bench.py's system on a (1,4) mesh of
     ``dev`` shards: the profiler's split, then the wall split by callee."""
@@ -317,6 +451,8 @@ def main() -> int:
                         help="profile the detection path at N x N instead of the fill")
     parser.add_argument("--multi-device", action="store_true",
                         help="profile the sharded fill on four shards of the card instead")
+    parser.add_argument("--mask-write", action="store_true",
+                        help="time detect's mask writes on the benchmark's scenes instead")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device (torch.cuda.is_available() is False)",
@@ -337,6 +473,10 @@ def main() -> int:
     if args.multi_device:
         print(json.dumps({"profile": {"card": card,
                                       **profile_multi_device(torch, dev, card, args.top)}}))
+        return 0
+    if args.mask_write:
+        print(json.dumps({"profile": {"card": card, "mask_write": mask_write(
+            torch, dev, card)}}))
         return 0
     out = {"card": card}
 

@@ -177,8 +177,9 @@ def _read_angles(
 
 def _write_mask(mask, out_path: Path, template: Path) -> None:
     # deflated by zlib, which releases the GIL: a write on a worker does not
-    # stall the stages on the calling thread
-    write_geotiff_deflated(fetch_mask(mask).astype(np.uint8), out_path, template_path=template)
+    # stall the stages on the calling thread. A bool holds 0 or 1 in a byte,
+    # so the mask is written as the u8 view of its own bytes, not a copy
+    write_geotiff_deflated(fetch_mask(mask).view(np.uint8), out_path, template_path=template)
 
 
 def detect(

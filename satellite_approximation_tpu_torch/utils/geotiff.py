@@ -332,7 +332,8 @@ def write_geotiff_deflated(
     template as in :func:`write_geotiff`. zlib releases the GIL while it
     compresses, where PIL's libtiff encoder holds it for the whole raster
     (~1 s for a 5490^2 mask): a writer thread that uses this leaves the
-    other threads' Python running."""
+    other threads' Python running. A raster past the codec's
+    ``ONE_STRIP_BYTES`` is deflated as row strips on the codec's pool."""
     from .tiffmb import write_multiband_tiff
 
     values = np.asarray(values)

@@ -8,7 +8,14 @@ framework's primary reader is PIL; this module covers what PIL cannot:
   encode arbitrary-band float TIFFs) — used by the GeoTIFF writer for
   poisson_main's 5-band output (poisson-main.cpp:66-71). Optional deflate
   compression, tiled layout, and BigTIFF (rasters beyond 4 GB — a 13-band
-  f32 Sentinel-2 tile is 6.3 GB and *requires* BigTIFF offsets).
+  f32 Sentinel-2 tile is 6.3 GB and *requires* BigTIFF offsets). A deflated
+  raster past ``ONE_STRIP_BYTES`` is cut into row strips of about
+  ``STRIP_BYTES``, compressed in parallel on a thread pool of the module's
+  own (zlib releases the GIL); a smaller one is one strip a band, encoded on
+  the caller's thread. Each deflated write adds to the innermost open span
+  (``utils/profiling.py``) the counters ``strips`` (strips encoded) and
+  ``encode_threads`` (the pool's width, 1 inline): a span that holds N
+  writes reads their sums.
 * **read**: classic and BigTIFF; strip- and tile-organized; uncompressed,
   deflate (8 / 32946) and LZW (5) compression; horizontal-differencing
   predictor (tag 317 = 2). This is the fallback `GeoTIFF.open` uses when
@@ -21,11 +28,15 @@ for BigTIFF/planar layouts).
 
 from __future__ import annotations
 
+import os
 import struct
+import threading
 import zlib
 from pathlib import Path
 
 import numpy as np
+
+from . import profiling
 
 # TIFF tag ids
 IMAGE_WIDTH = 256
@@ -78,6 +89,54 @@ _INFO_DTYPE = {v: k for k, v in _DTYPE_INFO.items()}
 DEFLATE_CODES = (8, 32946)  # Adobe deflate + legacy deflate
 LZW_CODE = 5
 
+# A deflated raster of at most this many bytes is one strip a band, on the
+# caller's thread; a larger one is cut into strips of about STRIP_BYTES each
+ONE_STRIP_BYTES = 4 << 20
+STRIP_BYTES = 1 << 20
+MAX_THREADS = 16
+
+_pool = None
+_width = None
+_pool_lock = threading.Lock()
+
+
+def _get_pool():
+    """The strip pool and its width: the CPUs this process may run on, less
+    the calling thread's, 1 to ``MAX_THREADS``; no pool at width 1."""
+    global _pool, _width
+    with _pool_lock:
+        if _width is None:
+            cpus = (len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity")
+                    else os.cpu_count() or 1)
+            _width = min(max(cpus - 1, 1), MAX_THREADS)
+        if _pool is None and _width > 1:
+            from concurrent.futures import ThreadPoolExecutor
+
+            _pool = ThreadPoolExecutor(max_workers=_width, thread_name_prefix="sat-strips")
+    return _pool, _width
+
+
+def _deflate_strips(values: np.ndarray) -> tuple[int, list[bytes]]:
+    """(rows a strip, each strip deflated) of a contiguous (C, H, W) array,
+    band by band and top to bottom within a band. Each strip is one
+    ``zlib.compress`` at zlib's default level over the strip's rows, so the
+    bytes do not depend on the pool's width."""
+    c, h, w = values.shape
+    if values.nbytes <= ONE_STRIP_BYTES:
+        rows, strips = h, [values[band] for band in range(c)]
+        pool, width = None, 1
+    else:
+        rows = min(h, max(1, STRIP_BYTES // (w * values.itemsize)))
+        strips = [values[band, r:r + rows] for band in range(c) for r in range(0, h, rows)]
+        pool, width = _get_pool()
+    if pool is None:
+        segments = [zlib.compress(s) for s in strips]
+    else:
+        segments = list(pool.map(zlib.compress, strips))
+    profiling.count("strips", len(strips))
+    profiling.count("encode_threads", width)
+    return rows, segments
+
 
 def _encode_value(ftype: int, values) -> bytes:
     if ftype == T_ASCII:
@@ -111,7 +170,9 @@ def write_multiband_tiff(
     bigtiff: force BigTIFF (version 43, 8-byte offsets). Default: auto —
     classic TIFF unless the payload approaches the 4 GB offset limit.
     tile: (tile_height, tile_width) for a tiled layout (multiples of 16 per
-    the TIFF spec); default is one strip per band.
+    the TIFF spec); default is strips: one a band, or row strips of about
+    ``STRIP_BYTES`` a band where a deflated raster passes
+    ``ONE_STRIP_BYTES``.
     compression: None or "deflate".
     """
     values = np.asarray(values)
@@ -137,11 +198,12 @@ def write_multiband_tiff(
     # --- build the data segments (strips or tiles), band-sequential ---
     segments: list[bytes] = []
     if tile is None:
-        for band in range(c):
-            seg = values[band].tobytes()
-            segments.append(zlib.compress(seg) if comp_code != 1 else seg)
+        if comp_code != 1:
+            rows, segments = _deflate_strips(values)
+        else:
+            rows, segments = h, [values[band].tobytes() for band in range(c)]
         seg_tags = [
-            (ROWS_PER_STRIP, T_LONG, h),
+            (ROWS_PER_STRIP, T_LONG, rows),
         ]
         off_tag, cnt_tag = STRIP_OFFSETS, STRIP_BYTE_COUNTS
     else:

@@ -18,6 +18,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from PIL import Image
+from torch.profiler import ProfilerActivity, profile
 
 from satellite_approximation_tpu import config as j_config
 from satellite_approximation_tpu.models.detection import pipeline as j_pipe
@@ -25,8 +27,9 @@ from satellite_approximation_tpu.utils import geotiff as j_geotiff
 from satellite_approximation_tpu_torch import config as t_config
 from satellite_approximation_tpu_torch import native
 from satellite_approximation_tpu_torch.models.detection import pipeline as t_pipe
+from satellite_approximation_tpu_torch.ops.masks import fetch_mask
 from satellite_approximation_tpu_torch.utils import geotiff as t_geotiff
-from satellite_approximation_tpu_torch.utils import profiling, types
+from satellite_approximation_tpu_torch.utils import profiling, tiffmb, types
 from torch_parity import (  # noqa: F401 — native_route is a fixture
     NATIVE_ROUTES,
     detection_config,
@@ -129,6 +132,44 @@ class TestDetectAgainstJax:
         assert "cloud partition (wait)" not in main
         assert main.index("cloud partition") + 1 == main.index("cloud-shadow matching")
         assert "write shadow masks" in [name for name, _, worker, _ in timer._log if worker]
+
+    def test_big_scene_writes_its_masks_in_strips(self, scene, reference, tmp_path, monkeypatch):
+        """The device route's four mask writes, with the strip sizes patched
+        small, in row strips on the strip pool: each file reads back equal
+        to the mask the call computed, and each write stage counts its
+        strips and the pool's width."""
+        monkeypatch.setattr(t_config, "BIG_SCENE_PIXELS", 1)
+        monkeypatch.setattr(tiffmb, "ONE_STRIP_BYTES", 4096)
+        monkeypatch.setattr(tiffmb, "STRIP_BYTES", 2048)  # 8 rows of 256
+        computed = {}
+        write = t_pipe._write_mask
+
+        def keep(mask, out_path, template):
+            computed[out_path.stem] = fetch_mask(mask).copy()
+            write(mask, out_path, template)
+
+        monkeypatch.setattr(t_pipe, "_write_mask", keep)
+        profiling.clear()
+        try:
+            with profile(activities=[ProfilerActivity.CPU]):
+                status, masks = run(t_pipe, t_geotiff, tmp_path / "d", scene,
+                                    detection_config(t_config, "torch", "torch"), device="cpu")
+            writes = [r for r in profiling.records()
+                      if r.name in ("detect.write cloud mask", "detect.write shadow masks")]
+        finally:
+            profiling.clear()
+        assert_same(status, masks, reference)
+        assert sorted(computed) == sorted(MASKS)
+        for name in MASKS:
+            path = tmp_path / "d" / f"{name}.tif"
+            with Image.open(path) as im:
+                assert np.array_equal(np.array(im).astype(bool), computed[name]), name
+            assert np.array_equal(t_geotiff.GeoTIFF.open(path).read().astype(bool), computed[name])
+            assert np.array_equal(masks[name], computed[name]), name  # the JAX package's reader
+        assert len(writes) == 4
+        width = tiffmb._get_pool()[1]
+        assert all(r.counts == {"strips": N // 8, "encode_threads": width} for r in writes)
+        assert all(r.thread.startswith("sat-overlap") for r in writes)
 
     def test_files_on_disk_instead_of_inputs(self, scene, reference, tmp_path):
         work = tmp_path / "d"
