@@ -9,7 +9,8 @@ of one block or less runs on the caller's thread.
 
 The counters ``surface_blocks`` (blocks tested) and ``surface_threads`` (the
 pool's width, 1 inline) go to the innermost open span, ``fill.exactness_check``
-in ``laplace.solve_matrix``.
+in ``laplace.solve_matrix`` and in ``poisson.blend_images_poisson``, where they
+add up over the input and the replacement stacks.
 """
 
 from __future__ import annotations

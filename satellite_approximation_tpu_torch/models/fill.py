@@ -198,8 +198,12 @@ def _fused_refine_solve(
             x_hi, e = two_sum(x_hi, d * umf)
             x_lo = x_lo + e
             del d, e
-            r_hi, rnorm = residual(x_hi, x_lo)
-            rnorm = rnorm.cpu().numpy()
+            # the fetch of the norms is the pass's one sync, so the span's
+            # host time bounds the residual's device time from above
+            with profiling.span("fill.residual", cells=x_hi.numel(),
+                                guidance=int(mode == "poisson")):
+                r_hi, rnorm = residual(x_hi, x_lo)
+                rnorm = rnorm.cpu().numpy()
             profiling.count("pcg_iterations", it)
         step += 1
         iters += it

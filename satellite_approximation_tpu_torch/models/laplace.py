@@ -109,7 +109,7 @@ def _solve_matrix(images, invalid_mask, config: SolverConfig, device):
     # device path: when the f64 input is exactly representable in f32 (every
     # u8/u16-derived raster), upload f32 and fetch back only the n solved
     # values
-    with profiling.span("fill.exactness_check"):
+    with profiling.span("fill.exactness_check", stacks=1):
         img32, exact = cast_exact_f32(images, config.device_assembly)
     if exact:
         # looked up at call time: a caller may wrap models.fill.laplace_fill

@@ -22,6 +22,7 @@ import numpy as np
 
 from ..config import DEFAULT_SOLVER, SolverConfig
 from ..device import resolve_device
+from ..utils import profiling
 from ..utils.log import create_logger
 from ..utils.perf import PerfInfo
 from . import multigrid
@@ -72,14 +73,21 @@ def _poisson_rhs(
 def _solve(
     inputs: np.ndarray,
     replacement: np.ndarray,
-    umask: np.ndarray,
+    invalid_mask: np.ndarray | None,
     tolerance: float,
     max_iterations: int | None,
     perf_path: Path | str | None,
     config: SolverConfig,
     device,
 ) -> np.ndarray:
-    n_unknowns = int(umask.sum())
+    """The blend of ``replacement`` into ``inputs`` (both (C, H, W) f64) over
+    the unknowns: ``invalid_mask``'s true pixels, or with None the
+    replacement's non-sentinel pixels. Opens the fill's surface spans, as
+    ``laplace.solve_matrix`` does."""
+    with profiling.span("fill.unknowns"):
+        umask = (valid_pixel_mask(replacement) if invalid_mask is None
+                 else np.asarray(invalid_mask, dtype=bool))
+        n_unknowns = int(umask.sum())
     _logger.debug("Found %d invalid pixels", n_unknowns)
     if n_unknowns == 0:
         return np.asarray(inputs, dtype=np.float64)
@@ -112,24 +120,29 @@ def _solve(
 
     # device path (see laplace.solve_matrix): f32 uploads, guidance RHS
     # assembled on the device, only the n solved values come back
-    inp32, exact = cast_exact_f32(inputs, config.device_assembly)
+    with profiling.span("fill.exactness_check", stacks=1):
+        inp32, exact = cast_exact_f32(inputs, config.device_assembly)
+        if exact:
+            profiling.count("stacks")
+            rep32, exact = cast_exact_f32(replacement, config.device_assembly)
     if exact:
-        rep32, exact = cast_exact_f32(replacement, config.device_assembly)
-    if exact:
+        # looked up at call time: a caller may wrap models.fill.laplace_fill
         from .fill import laplace_fill
 
-        result = laplace_fill(
-            inp32,
-            umask,
-            tolerance=tolerance,
-            refinement_steps=max(config.refinement_steps, 1),
-            max_iterations=200 if use_mg else max_iters,
-            use_multigrid=use_mg,
-            masked_values_output=True,
-            replacement=rep32,
-            device=device,
-        )
-        out = scatter_masked(inputs, umask, result.x)
+        with profiling.span("fill.laplace_fill"):
+            result = laplace_fill(
+                inp32,
+                umask,
+                tolerance=tolerance,
+                refinement_steps=max(config.refinement_steps, 1),
+                max_iterations=200 if use_mg else max_iters,
+                use_multigrid=use_mg,
+                masked_values_output=True,
+                replacement=rep32,
+                device=device,
+            )
+        with profiling.span("fill.scatter_back"):
+            out = scatter_masked(inputs, umask, result.x)
     else:
         b = _poisson_rhs(replacement, inputs, umask)
         x0 = np.asarray(replacement, dtype=np.float64) * umask
@@ -191,6 +204,13 @@ def blend_images_poisson(
     structure. ``tolerance``/``max_iterations`` default to the reference's
     1e-6 and n_unknowns/2.
     """
+    with profiling.call("fill"):
+        return _blend(input_images, replacement_images, invalid_mask, start_row, start_column,
+                      tolerance, max_iterations, perf_path, config, device)
+
+
+def _blend(input_images, replacement_images, invalid_mask, start_row, start_column,
+           tolerance, max_iterations, perf_path, config, device):
     dev = resolve_device(device)
     as_list = isinstance(input_images, (list, tuple))
     inputs = (
@@ -218,8 +238,8 @@ def blend_images_poisson(
                 f"Input images and mask are different sizes "
                 f"({inputs.shape[-2:]} vs {invalid_mask.shape})"
             )
-        umask = np.asarray(invalid_mask, dtype=bool)
-        out = _solve(inputs, repl, umask, tolerance, max_iterations, perf_path, config, dev)
+        out = _solve(inputs, repl, invalid_mask, tolerance, max_iterations, perf_path, config,
+                     dev)
     else:
         rh, rw = repl.shape[-2:]
         ih, iw = inputs.shape[-2:]
@@ -227,9 +247,8 @@ def blend_images_poisson(
             raise ValueError(f"Row/column out of bounds: {start_row}, {start_column}")
         if start_row + rh > ih or start_column + rw > iw:
             raise ValueError("Replacement image goes beyond the bounds of the input image")
-        umask = valid_pixel_mask(repl)
         window = inputs[..., start_row : start_row + rh, start_column : start_column + rw]
-        solved = _solve(window, repl, umask, tolerance, max_iterations, perf_path, config, dev)
+        solved = _solve(window, repl, None, tolerance, max_iterations, perf_path, config, dev)
         out = inputs.copy()
         out[..., start_row : start_row + rh, start_column : start_column + rw] = solved
 

@@ -15,7 +15,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from satellite_approximation_tpu_torch.config import DEFAULT_SOLVER
-from satellite_approximation_tpu_torch.models import _surface, laplace, multigrid
+from satellite_approximation_tpu_torch.models import _surface, laplace, multigrid, poisson
 from satellite_approximation_tpu_torch.models.detection import pipeline
 from satellite_approximation_tpu_torch.ops import pitfill
 from satellite_approximation_tpu_torch.utils import profiling
@@ -131,6 +131,12 @@ def test_span_duration_matches_the_profiler():
         ours, theirs)
 
 
+# the spans of a traced fill or blend call on the device route
+FILL_SPANS = {"fill.call", "fill.unknowns", "fill.exactness_check", "fill.laplace_fill",
+              "fill.scatter_back", "fill.hierarchy", "fill.upload", "fill.entry_residual",
+              "fill.pass", "fill.residual", "fill.fetch", "fill.chunk", "fill.join"}
+
+
 def _multigrid_case():
     rng = np.random.default_rng(14)
     images = rng.integers(0, 10000, size=(2, 96, 112)).astype(np.float64)
@@ -160,19 +166,63 @@ def test_solve_matrix_spans_and_hierarchy_builds(monkeypatch):
         {"hierarchy_builds": 1}, {"hierarchy_builds": 0}]
     for call, result in zip(calls, results):
         mine = [r for r in profiling.records() if r.call_id == call.call_id]
-        names = {r.name for r in mine}
-        assert names == {"fill.call", "fill.unknowns", "fill.exactness_check", "fill.laplace_fill",
-                         "fill.scatter_back", "fill.hierarchy", "fill.upload",
-                         "fill.entry_residual", "fill.pass", "fill.fetch", "fill.chunk",
-                         "fill.join"}
+        assert {r.name for r in mine} == FILL_SPANS
         assert {r.thread for r in mine} == {threading.current_thread().name}
         [check] = [r for r in mine if r.name == "fill.exactness_check"]
         assert check.counts["surface_threads"] == _surface._get_pool()[1]
+        assert check.counts["stacks"] == 1
         [chunk] = [r for r in mine if r.name == "fill.chunk"]
         assert chunk.parent == "fill.laplace_fill" and chunk.counts == {"bands": images.shape[0]}
         passes = [r for r in mine if r.name == "fill.pass"]
         assert {r.parent for r in passes} == {"fill.chunk"}
         assert sum(r.counts["pcg_iterations"] for r in passes) == result.iterations > 0
+        residuals = [r for r in mine if r.name == "fill.residual"]
+        assert {r.parent for r in residuals} == {"fill.pass"}
+        assert len(residuals) == len(passes)
+        assert all(r.counts == {"cells": images.size, "guidance": 0} for r in residuals)
+
+
+@pytest.mark.parametrize("overload", ["mask", "patch"])
+def test_blend_spans_carry_the_call_id(overload):
+    """Each blend call opens one ``fill.call``; the surface spans of
+    ``solve_matrix`` (the exactness check over both stacks) and the
+    solve's, each refinement pass's ``fill.residual`` among them (the
+    guidance residual over every cell of the stack), carry its id."""
+    images, invalid, config = _multigrid_case()
+    repl = images[::-1] + 7.0
+    if overload == "mask":
+        args = (images, repl, invalid)
+    else:  # the patch's non-sentinel pixels are the unknowns
+        patch = repl[:, 10:80, 15:95].copy()
+        patch[:, :3, :] = 1.0
+        repl = np.concatenate([patch, patch[:1]])  # three channels at least
+        args = (np.concatenate([images, images[:1]]), repl, None, 10, 15)
+    multigrid._HIERARCHY_CACHE.clear()
+    with traced():
+        for _ in range(2):
+            poisson.blend_images_poisson(*args, config=config, device="cpu")
+    multigrid._HIERARCHY_CACHE.clear()
+    calls = by_name("fill.call")
+    assert len(calls) == 2 and len({r.call_id for r in calls}) == 2
+    assert {r.call_id for r in profiling.records()} == {r.call_id for r in calls}
+    bands, h, w = repl.shape
+    for call in calls:
+        mine = [r for r in profiling.records() if r.call_id == call.call_id]
+        assert {r.name for r in mine} == FILL_SPANS
+        assert [r.name for r in mine].count("fill.call") == 1
+        [check] = [r for r in mine if r.name == "fill.exactness_check"]
+        assert check.counts["stacks"] == 2 and check.parent == "fill.call"
+        residuals = [r for r in mine if r.name == "fill.residual"]
+        assert len(residuals) == sum(r.name == "fill.pass" for r in mine) >= 1
+        assert all(r.counts == {"cells": bands * h * w, "guidance": 1} for r in residuals)
+        assert {r.parent for r in residuals} == {"fill.pass"}
+
+
+def test_blend_records_nothing_without_a_profiler():
+    images, invalid, config = _multigrid_case()
+    poisson.blend_images_poisson(images, images + 3.0, invalid, config=config, device="cpu")
+    multigrid._HIERARCHY_CACHE.clear()
+    assert profiling.records() == []
 
 
 def test_pit_fill_records_each_level():
